@@ -1,0 +1,33 @@
+"""Architecture configs ported so far.
+
+Each module defines ``CONFIG`` (the published config) and ``smoke()``
+(a reduced same-family variant for CPU tests). The registry holds only
+the architectures the port serves.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from ..models.config import ModelConfig
+
+ARCH_IDS: List[str] = ["yi_9b"]
+
+ALIASES: Dict[str, str] = {"yi-9b": "yi_9b"}
+
+
+def _module(arch: str):
+    key = ALIASES.get(arch, arch)
+    if key not in ARCH_IDS:
+        raise KeyError(f"architecture {arch!r} is not ported "
+                       f"(ported: {', '.join(ARCH_IDS)})")
+    return importlib.import_module(f"{__name__}.{key}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke()

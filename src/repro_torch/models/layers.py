@@ -1,0 +1,119 @@
+"""Shared building blocks: init, RMSNorm, rotary embeddings, SwiGLU,
+embedding and unembedding.
+
+Plain functions over explicit parameter trees (nested dicts, or the
+``ModuleDict``/``ParameterDict`` nesting of ``Model`` — both index the
+same way). Dtype discipline follows the reference: norm and RoPE compute
+in fp32 and cast back to the input dtype, so both packages round at the
+same places.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
+               dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """Normal × 1/√fan_in, drawn in fp32 and cast (the reference's rule;
+    the values differ because the generators differ)."""
+    std = 1.0 / math.sqrt(shape[in_axis])
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device) * std
+    return w.to(device=device, dtype=dtype)
+
+
+def init_norm(d: int, kind: str, device=None) -> Params:
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm kind {kind!r} is not ported")
+    return {"scale": torch.ones((d,), dtype=torch.bfloat16, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x: torch.Tensor, w, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    if w is not None:
+        x = x * w.float()
+    return x.to(dt)
+
+
+def apply_norm(x: torch.Tensor, params, kind: str, eps: float):
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"norm kind {kind!r} is not ported")
+    return rmsnorm(x, params["scale"], eps)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int."""
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)   # (D/2,)
+    ang = positions.float()[..., None] * inv                 # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def mlp_apply(x: torch.Tensor, p, kind: str) -> torch.Tensor:
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp kind {kind!r} is not ported")
+    h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    return h @ p["wo"]
+
+
+def init_mlp(gen, d: int, d_ff: int, kind: str, device=None) -> Params:
+    if kind != "swiglu":
+        raise NotImplementedError(f"mlp kind {kind!r} is not ported")
+    return {
+        "wi_gate": dense_init(gen, (d, d_ff), device=device),
+        "wi_up": dense_init(gen, (d, d_ff), device=device),
+        "wo": dense_init(gen, (d_ff, d), in_axis=0, device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding
+# ---------------------------------------------------------------------------
+def init_embed(gen, vocab: int, d: int, tie: bool, device=None) -> Params:
+    p = {"tok": dense_init(gen, (vocab, d), in_axis=1, device=device)}
+    if not tie:
+        p["unembed"] = dense_init(gen, (d, vocab), device=device)
+    return p
+
+
+def embed_tokens(tokens: torch.Tensor, p, scale: bool, d: int):
+    x = p["tok"][tokens.long()]
+    if scale:
+        x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
+    return x
+
+
+def unembed(x: torch.Tensor, p) -> torch.Tensor:
+    w = p["unembed"] if "unembed" in p else p["tok"].T
+    return x @ w

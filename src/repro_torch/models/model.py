@@ -1,0 +1,127 @@
+"""Top-level Model for the dense family: init, prefill, decode.
+
+``Model`` is an ``nn.ModuleDict`` whose parameter tree has the reference
+tree's key paths (``embed.tok``, ``stack.pos0.attn.wq``, ``norm_f.scale``)
+with the same shapes and dtypes, so the model itself indexes like the
+reference's params dict and can be handed to the functional layers.
+Parameters never require grad: the slice is inference only.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+from torch import nn
+
+from ..convert import params_from_numpy
+from ..device import DeviceLike, resolve_device
+from .config import ModelConfig
+from .layers import apply_norm, embed_tokens, init_embed, init_norm, unembed
+from .transformer import apply_stack_decode, apply_stack_full, empty_stack_cache, init_stack
+
+Params = Dict[str, Any]
+
+
+def _to_module(tree: Mapping[str, Any]) -> nn.Module:
+    """Nested dict of tensors → ModuleDict/ParameterDict nesting."""
+    leaves = [isinstance(v, torch.Tensor) for v in tree.values()]
+    if all(leaves):
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                 for k, v in tree.items()})
+    if any(leaves):
+        raise ValueError("parameter tree mixes leaves and subtrees at one level")
+    return nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise for any architecture feature outside the ported dense family."""
+    unported = [
+        name for name, bad in (
+            ("family", cfg.family != "dense"),
+            ("norm_kind", cfg.norm_kind != "rmsnorm"),
+            ("rope_kind", cfg.rope_kind != "rope"),
+            ("mlp_kind", cfg.mlp_kind != "swiglu"),
+            ("qk_norm", cfg.qk_norm),
+            ("attn_bias", cfg.attn_bias),
+            ("attn_logit_softcap", bool(cfg.attn_logit_softcap)),
+            ("sliding_window", bool(cfg.sliding_window)),
+            ("encoder_layers", bool(cfg.encoder_layers)),
+            ("num_experts", bool(cfg.num_experts)),
+        ) if bad]
+    if unported:
+        raise NotImplementedError(
+            f"{cfg.name}: not ported yet: {', '.join(unported)}")
+
+
+class Model(nn.ModuleDict):
+    def __init__(self, cfg: ModelConfig):
+        check_ported(cfg)
+        super().__init__()
+        self.cfg = cfg
+
+    # -- parameters -----------------------------------------------------------
+    @property
+    def device(self) -> torch.device:
+        return self["embed"]["tok"].device
+
+    def init(self, generator: torch.Generator, device: DeviceLike = None
+             ) -> "Model":
+        """Random parameters from ``generator`` on ``device`` (``None`` →
+        cuda). Same key paths, shapes and dtypes as the reference's
+        ``Model.init``; the values differ because the generators do."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        tree = {
+            "embed": init_embed(generator, cfg.vocab_size, cfg.d_model,
+                                cfg.tie_embeddings, dev),
+            "stack": init_stack(generator, cfg, dev),
+            "norm_f": init_norm(cfg.d_model, cfg.norm_kind, dev),
+        }
+        return self._install(tree)
+
+    def load_params(self, tree: Mapping[str, Any], device: DeviceLike = None
+                    ) -> "Model":
+        """Install the reference's parameters, given as numpy arrays."""
+        return self._install(params_from_numpy(tree, resolve_device(device)))
+
+    def _install(self, tree: Mapping[str, Any]) -> "Model":
+        self.clear()
+        for k, v in tree.items():
+            self[k] = _to_module(v)
+        return self
+
+    # -- serving ------------------------------------------------------------
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
+        """tokens: (B, S) int. Returns (last-token logits (B, V) fp32,
+        cache with leaves (L, B, cache_len, Hkv, D))."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        cache_len = cache_len or S
+        x = embed_tokens(tokens, self["embed"], cfg.embed_scale, cfg.d_model)
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(B, S)
+        x, cache = apply_stack_full(x, self["stack"], cfg, positions,
+                                    want_cache=True, cache_len=cache_len)
+        x = apply_norm(x[:, -1:], self["norm_f"], cfg.norm_kind, cfg.norm_eps)
+        return unembed(x, self["embed"])[:, 0].float(), cache
+
+    def decode_step(self, token: torch.Tensor, pos: torch.Tensor,
+                    cache: Params):
+        """token: (B,) int; pos: (B,) int. Returns (logits (B, V) fp32,
+        cache) — the cache is updated in place."""
+        cfg = self.cfg
+        x = embed_tokens(token[:, None], self["embed"], cfg.embed_scale,
+                         cfg.d_model)
+        x, cache = apply_stack_decode(x, self["stack"], cfg, cache, pos)
+        x = apply_norm(x, self["norm_f"], cfg.norm_kind, cfg.norm_eps)
+        return unembed(x, self["embed"])[:, 0].float(), cache
+
+    def empty_cache(self, batch: int, cache_len: int,
+                    kv_dtype=torch.bfloat16) -> Params:
+        return empty_stack_cache(self.cfg, batch, cache_len,
+                                 kv_dtype=kv_dtype, device=self.device)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

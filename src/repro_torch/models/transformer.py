@@ -1,0 +1,156 @@
+"""Decoder stack, dense family.
+
+Parameters for each super-block position are stacked over blocks with a
+leading layer axis (``stack.pos0.attn.wq`` is ``(L, d, H, Dh)``), as in
+the reference; the reference's ``lax.scan`` over that axis becomes a
+Python loop over layer slices (views, no copies).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from .attention import attention_decode, attention_full, empty_cache, init_attention
+from .config import LayerSpec, ModelConfig
+from .layers import apply_norm, init_mlp, init_norm, mlp_apply
+
+Params = Dict[str, Any]
+
+
+def _is_tree(x) -> bool:
+    return hasattr(x, "items")
+
+
+def tree_index(tree, i: int):
+    """Slice index ``i`` of the leading axis out of every leaf."""
+    return {k: tree_index(v, i) if _is_tree(v) else v[i]
+            for k, v in tree.items()}
+
+
+def _check_dense(spec: LayerSpec) -> None:
+    if spec.kind != "attn" or spec.moe or spec.cross_attn \
+            or spec.sliding_window:
+        raise NotImplementedError(
+            f"layer {spec} is not ported: the port serves dense "
+            "global-attention stacks")
+
+
+# ---------------------------------------------------------------------------
+# one layer
+# ---------------------------------------------------------------------------
+def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device=None) -> Params:
+    _check_dense(spec)
+    return {
+        "norm_in": init_norm(cfg.d_model, cfg.norm_kind, device),
+        "attn": init_attention(gen, cfg, device),
+        "norm_mlp": init_norm(cfg.d_model, cfg.norm_kind, device),
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, device),
+    }
+
+
+def apply_layer_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
+                     want_cache: bool = False, cache_len: int = 0):
+    """Prefill application. Returns (x, cache)."""
+    h = apply_norm(x, p["norm_in"], cfg.norm_kind, cfg.norm_eps)
+    a, kv = attention_full(h, p["attn"], cfg, spec, positions,
+                           want_cache=want_cache, cache_len=cache_len)
+    x = x + a
+    h = apply_norm(x, p["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
+    x = x + mlp_apply(h, p["mlp"], cfg.mlp_kind)
+    return x, ({"self": kv} if want_cache else {})
+
+
+def apply_layer_decode(x, p, cfg: ModelConfig, spec: LayerSpec,
+                       cache: Params, pos):
+    """One-token decode. Returns (x, cache) — the cache updated in place."""
+    h = apply_norm(x, p["norm_in"], cfg.norm_kind, cfg.norm_eps)
+    a, kv = attention_decode(h, p["attn"], cfg, spec, cache["self"], pos)
+    x = x + a
+    h = apply_norm(x, p["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
+    x = x + mlp_apply(h, p["mlp"], cfg.mlp_kind)
+    return x, {"self": kv}
+
+
+# ---------------------------------------------------------------------------
+# the stacked decoder
+# ---------------------------------------------------------------------------
+def init_stack(gen, cfg: ModelConfig, device=None) -> Params:
+    """Per-layer init written into preallocated stacked leaves, so the
+    full-size model never holds two copies of a leaf."""
+    out: Params = {}
+    nb = cfg.num_blocks
+    for i, spec in enumerate(cfg.block_pattern()):
+        stacked = None
+        for b in range(nb):
+            layer = init_layer(gen, cfg, spec, device)
+            if stacked is None:
+                stacked = _alloc_stacked(layer, nb)
+            _copy_into(stacked, layer, b)
+        out[f"pos{i}"] = stacked
+    return out
+
+
+def _alloc_stacked(layer, nb: int):
+    return {k: _alloc_stacked(v, nb) if _is_tree(v) else
+            torch.empty((nb,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+            for k, v in layer.items()}
+
+
+def _copy_into(stacked, layer, b: int) -> None:
+    for k, v in layer.items():
+        if _is_tree(v):
+            _copy_into(stacked[k], v, b)
+        else:
+            stacked[k][b].copy_(v)
+
+
+def apply_stack_full(x, stack, cfg: ModelConfig, positions,
+                     want_cache: bool = False, cache_len: int = 0):
+    """Returns (x, cache) with cache leaves stacked (L, B, cache_len, ...)."""
+    pattern = cfg.block_pattern()
+    per_block: List[Params] = []
+    for b in range(cfg.num_blocks):
+        caches = {}
+        for i, spec in enumerate(pattern):
+            x, c = apply_layer_full(x, tree_index(stack[f"pos{i}"], b), cfg,
+                                    spec, positions, want_cache=want_cache,
+                                    cache_len=cache_len)
+            caches[f"pos{i}"] = c
+        per_block.append(caches)
+    if not want_cache:
+        return x, None
+    return x, _stack_trees(per_block)
+
+
+def _stack_trees(trees: List[Params]) -> Params:
+    first = trees[0]
+    return {k: _stack_trees([t[k] for t in trees]) if _is_tree(v)
+            else torch.stack([t[k] for t in trees])
+            for k, v in first.items()}
+
+
+def apply_stack_decode(x, stack, cfg: ModelConfig, cache: Params, pos):
+    """One-token decode through every layer; ``cache`` (stacked leaves)
+    is updated in place and returned."""
+    pattern = cfg.block_pattern()
+    for b in range(cfg.num_blocks):
+        for i, spec in enumerate(pattern):
+            x, _ = apply_layer_decode(
+                x, tree_index(stack[f"pos{i}"], b), cfg, spec,
+                tree_index(cache[f"pos{i}"], b), pos)
+    return x, cache
+
+
+def empty_stack_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                      kv_dtype=torch.bfloat16, device=None) -> Params:
+    out = {}
+    nb = cfg.num_blocks
+    for i, spec in enumerate(cfg.block_pattern()):
+        _check_dense(spec)
+        c = empty_cache(cfg, spec, batch, cache_len, dtype=kv_dtype,
+                        device=device)
+        out[f"pos{i}"] = {"self": {
+            k: v[None].repeat((nb,) + (1,) * v.dim()) for k, v in c.items()}}
+    return out

@@ -1,0 +1,189 @@
+"""PagedKVPool — the KV cache as an RPCool shared-memory heap.
+
+The pool is the device-resident instantiation of the paper's shared heap:
+  * a page = one KV block (page_tokens × kv_heads × head_dim × 2 (K,V) ×
+    num_layers);
+  * page accounting, ownership, permissions, leases and quotas run
+    through this package's SharedHeap/Orchestrator, so page ids, seal
+    indices and quota sheds are the reference's;
+  * block tables are page indices — the pointer-rich RPC argument of the
+    serving data plane;
+  * seals: prefill write-protects a request's pages before the handoff;
+    the paged-attention kernel verifies the seal on every dereference;
+  * sandbox bitmap: pages owned by the connection — a wild block-table
+    entry pointing at another request's pages is masked and flagged.
+
+``k``/``v`` are ``(L, P, T, Hkv, D)`` bf16 tensors on the pool's device;
+the permission word, sandbox bitmap and descriptor reach the kernel as
+int32 tensors on the same device.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.errors import AllocationError, Overloaded
+from ..core.orchestrator import Orchestrator
+from ..core.seal import SealManager
+from ..device import DeviceLike, resolve_device
+from ..kernels.scope_copy.ops import gather_pages, scatter_pages
+from ..models.config import ModelConfig
+
+# back-off hint carried by pool-pressure sheds (§5.4 retry-after)
+POOL_RETRY_AFTER_S = 0.02
+
+
+@dataclass
+class PoolConfig:
+    num_pages: int = 256
+    page_tokens: int = 16
+    max_pages_per_seq: int = 32
+
+
+class PagedKVPool:
+    def __init__(self, orch: Orchestrator, cfg: ModelConfig,
+                 pool_cfg: PoolConfig, owner_pid: int,
+                 device: DeviceLike = None):
+        self.cfg = cfg
+        self.pc = pool_cfg
+        self.device = resolve_device(device)
+        L = cfg.num_layers
+        T, P = pool_cfg.page_tokens, pool_cfg.num_pages
+        Hkv, D = cfg.num_kv_heads, cfg.head_dim
+
+        # page byte size for quota accounting (K+V, all layers)
+        self.page_bytes = 2 * L * T * Hkv * D * 2
+        self.heap = orch.create_heap(P, page_size=self.page_bytes,
+                                     name="kv_pool")
+        orch.map_heap(owner_pid, self.heap)
+        self.heap.attach_device_perm(self.device)
+        # the seal descriptor ring takes heap pages 0..r-1; those pages
+        # exist in the device pool too but are never handed to requests
+        self.seals = SealManager(self.heap, capacity=4 * P)
+        self.k = torch.zeros((L, P, T, Hkv, D), dtype=torch.bfloat16,
+                             device=self.device)
+        self.v = torch.zeros_like(self.k)
+        self.owner_pid = owner_pid
+        self.orch = orch
+        # bytes bulk-migrated into/out of this pool by cross-pod handoffs
+        self.byref_bytes_in = 0
+        self.byref_bytes_out = 0
+
+    # -- allocation (pointer minting) -----------------------------------
+    def pages_owned(self, conn_id: int) -> int:
+        """Pool pages ``conn_id`` currently owns (quota accounting)."""
+        return int(((self.heap.owner == conn_id)
+                    & (self.heap.state == 1)).sum())
+
+    def _check_page_quota(self, conn_id: int, n_pages: int) -> None:
+        quota = self.orch.page_quota(conn_id)
+        if quota is None:
+            return
+        owned = self.pages_owned(conn_id)
+        if owned + n_pages > quota:
+            raise Overloaded(
+                f"conn {conn_id}: admit needs {n_pages} pages but "
+                f"{owned}/{quota} of its page quota are in use (§5.4)",
+                retry_after_s=POOL_RETRY_AFTER_S)
+
+    def alloc_seq(self, n_tokens: int, conn_id: int) -> List[int]:
+        n_pages = max(1, -(-n_tokens // self.pc.page_tokens))
+        if n_pages > self.pc.max_pages_per_seq:
+            raise ValueError("sequence exceeds max_pages_per_seq")
+        self._check_page_quota(conn_id, n_pages)
+        # one-page extents (block tables chase pointers anyway); a
+        # mid-sequence failure hands the partial list back
+        pages: List[int] = []
+        try:
+            for _ in range(n_pages):
+                pages.append(self.heap.alloc_pages(1, owner=conn_id))
+        except AllocationError:
+            for p in pages:
+                self.heap.free_extent(p, 1)
+            raise
+        return pages
+
+    def free_seq(self, pages: List[int]) -> None:
+        for p in pages:
+            self.heap.free_extent(p, 1)
+
+    # -- seal protocol around the handoff -------------------------------
+    def seal_seq(self, pages: List[int], holder: int) -> List[int]:
+        return [self.seals.seal((p, 1), holder=holder) for p in pages]
+
+    def complete_and_release(self, seal_idxs: List[int], holder: int,
+                             batched: bool = True) -> None:
+        for idx in seal_idxs:
+            self.seals.mark_complete(idx)
+            if batched:
+                self.seals.release_batched(idx, holder=holder)
+            else:
+                self.seals.release(idx, holder=holder)
+
+    # -- device-side permission state for the kernel -----------------------
+    def perm_bits(self) -> torch.Tensor:
+        """(P,) int32 perm words (bit0 = SEALED) on the pool's device;
+        re-uploaded only after a permission epoch bump."""
+        return self.heap.device_perm()
+
+    def sandbox_bitmap(self, conn_id: int) -> torch.Tensor:
+        """Pages this connection may dereference (the MPK key check)."""
+        allowed = (self.heap.owner == conn_id) & (self.heap.state == 1)
+        return torch.from_numpy(allowed.astype(np.int32)).to(self.device)
+
+    def sandbox_desc(self, enforce: bool = True) -> torch.Tensor:
+        return torch.tensor([0, self.pc.num_pages, 1 if enforce else 0],
+                            dtype=torch.int32, device=self.device)
+
+    # -- data plane ----------------------------------------------------------
+    def write_prefill(self, cache_k, cache_v, pages: List[int],
+                      n_tokens: int) -> None:
+        """Scatter a prefill's contiguous (L, S, Hkv, D) KV into pages."""
+        T = self.pc.page_tokens
+        nP = len(pages)
+        L = cache_k.shape[0]
+        pad = nP * T - n_tokens
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        for pool, c in ((self.k, cache_k), (self.v, cache_v)):
+            blocks = F.pad(c, (0, 0, 0, 0, 0, pad)).to(pool.dtype)
+            pool.index_copy_(1, idx, blocks.reshape(L, nP, T, *c.shape[2:]))
+
+    def stats(self) -> Dict[str, int]:
+        return self.heap.stats()
+
+
+def transfer_pages_cross_pod(src_pool: PagedKVPool, dst_pool: PagedKVPool,
+                             src_pages: List[int],
+                             dst_pages: List[int]) -> int:
+    """The fallback data plane (§4.7): when prefill and decode live in
+    different pods, the block-table handoff degrades to gather(src pages)
+    → wire → scatter(dst pages), per layer, for K and V. The destination
+    pool is updated in place. Returns the bytes moved — the number the
+    zero-copy path avoids entirely."""
+    L, P = src_pool.k.shape[0], src_pool.k.shape[1]
+    dev = src_pool.device
+    sp = torch.tensor(src_pages, dtype=torch.int32, device=dev)
+    dp = torch.tensor(dst_pages, dtype=torch.int32, device=dst_pool.device)
+
+    moved = 0
+    for name in ("k", "v"):
+        src_t, dst_t = getattr(src_pool, name), getattr(dst_pool, name)
+        if not (src_t.is_contiguous() and dst_t.is_contiguous()):
+            raise ValueError("pool tensors must be contiguous to flatten "
+                             "into (L·P, W) views")
+        # views, not copies: the scatter lands in the destination pool
+        src = src_t.view(L * P, -1)
+        dst = dst_t.view(L * P, -1)
+        # page ids offset per layer into the flattened (L·P, W) pool
+        for l in range(L):
+            wire = gather_pages(src, sp + l * P)
+            scatter_pages(dst, dp + l * P, wire.to(dst.device))
+            moved += wire.numel() * wire.element_size()
+    src_pool.byref_bytes_out += moved
+    dst_pool.byref_bytes_in += moved
+    return moved
