@@ -17,9 +17,10 @@ before the result line is printed:
    around this run alone;
 4. end-to-end check of the paged kernel: the same prompts through the
    dense-cache ``Model.prefill`` + ``Model.decode_step`` chain;
-5. cross-pod handoff between two full-width pools (gather/scatter);
-6. times with CUDA events (median over samples, L2 flushed before each);
-7. a ``{"kernels": [...]}`` line, the card line, and last
+5. where a decode step's time goes, from ``torch.profiler``;
+6. cross-pod handoff between two full-width pools (gather/scatter);
+7. times with CUDA events (median over samples, L2 flushed before each);
+8. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); imports nothing of
@@ -73,8 +74,11 @@ def card_line() -> str:
 # timing
 # ---------------------------------------------------------------------------
 class Timer:
-    """Median of per-call CUDA-event times, L2 flushed before each call
-    (the main path finds each layer's pool slice cold)."""
+    """Median of per-call CUDA-event times. Before each call the L2 cache
+    is flushed (the main path finds each layer's pool slice cold) and the
+    card is kept busy for ~0.1 ms, so the call is fully enqueued before
+    its start event fires and the host's launch overhead stays outside
+    the measured interval."""
 
     def __init__(self):
         self.flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -85,6 +89,7 @@ class Timer:
         times = []
         for _ in range(samples):
             self.flush_buf.zero_()
+            torch.cuda._sleep(200_000)   # spin ~0.1 ms of GPU clocks
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -143,6 +148,14 @@ def phase_kernels(gen, main_lens):
     from repro_torch.kernels.scope_copy.ref import gather_pages_ref, scatter_pages_ref
 
     k1_err = check_k1(k1_inputs(gen, lens=main_lens), TOL_BF16)
+    for B, Hq, Hkv, D, T, dtype in ((2, 4, 1, 64, 8, torch.float32),
+                                    (3, 8, 1, 128, 16, torch.float32),
+                                    (4, 16, 4, 128, 16, torch.bfloat16),
+                                    (2, 8, 8, 256, 8, torch.bfloat16)):
+        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+        err = check_k1(k1_inputs(gen, B=B, Hq=Hq, Hkv=Hkv, D=D, P=64, T=T,
+                                 MAXP=6, dtype=dtype), tol)
+        k1_err = max(k1_err, err)
     cases = {}
     for name, expect in (("wild_pointer", [1, 0]), ("unsealed_page", [0, 1]),
                          ("sandbox_off", [0, 0]), ("foreign_bitmap", [1, 0]),
@@ -180,8 +193,9 @@ def phase_kernels(gen, main_lens):
                 fail(f"gather_pages differs from its plain version ({dtype}, W={W})")
             if not torch.equal(scattered, scatter_pages_ref(pool.clone(), dst_pages, buf)):
                 fail(f"scatter_pages differs from its plain version ({dtype}, W={W})")
-    log(f"phase 2 kernels vs plain: paged_attention bf16 B=8 Hq=32 Hkv=4 D=128 "
-        f"T=16 MAXP=64 max|err| {k1_err:.3e}; sandbox cases "
+    log(f"phase 2 kernels vs plain: paged_attention at the slice shape (bf16 "
+        f"B=8 Hq=32 Hkv=4 D=128 T=16 MAXP=64) and a D/GQA/dtype sweep, max|err| "
+        f"{k1_err:.3e}; sandbox cases "
         f"{ {k: f'{v:.1e}' for k, v in cases.items()} }; gather/scatter bitwise "
         "for bf16/f32/i32 with clamped ids")
     return {"paged_attention": max(k1_err, *cases.values()),
@@ -189,7 +203,7 @@ def phase_kernels(gen, main_lens):
 
 
 # ---------------------------------------------------------------------------
-# phases 3-5: the main path
+# phases 3-6: the main path
 # ---------------------------------------------------------------------------
 def make_prompts(rng, n, vocab):
     return [rng.integers(1, vocab, size=int(rng.integers(128, 513))).tolist()
@@ -250,7 +264,56 @@ def phase_serve(cfg, model, prompts, extra, max_new):
         f"{eng.decode_steps} decode steps, paged_attention launches {launches} "
         f"= {L} x {eng.decode_steps}, oob 0, all pages and seals returned; "
         f"decode step {step_ms:.2f} ms at B=8")
-    return streams + results, info
+    return eng, streams + results, info
+
+
+def phase_profile(eng, prompts, max_new, steps=4):
+    """Where a decode step's time goes: a few batched steps at B=8 under
+    torch.profiler; device time by kernel against the host clock. Only
+    device events are summed: an operator's own entry also carries the
+    time of the kernels it launched, which would count them twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gens = [eng.generate_tokens(p, max_new) for p in prompts]
+    for g in gens:
+        next(g)                       # the prefill token; no step yet
+    def run_steps():
+        sync(eng.device)
+        t0 = time.perf_counter()
+        with eng._decode_lock:
+            for _ in range(steps):
+                eng.scheduler.step_batch()
+        sync(eng.device)
+        return 1e3 * (time.perf_counter() - t0) / steps
+
+    wall_ms = run_steps()             # the same steps, no profiler attached
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_wall_ms = run_steps()
+    for g in gens:
+        g.close()
+    kernels = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
+    busy_ms = sum(t for _, t, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    info = {"steps": steps, "wall_ms_per_step": wall_ms,
+            "profiled_wall_ms_per_step": prof_wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "launches_per_step": sum(c for _, _, c in kernels),
+            "top_kernels_ms_per_step": [(k[:80], t) for k, t, _ in top]}
+    if busy_ms:
+        log(f"phase 5 where a decode step goes (B=8, {steps} steps, then the "
+            f"same under the profiler): {wall_ms:.2f} ms wall ({prof_wall_ms:.2f} "
+            f"profiled), {busy_ms:.2f} ms device busy, idle share "
+            f"{info['device_idle_share']:.3f}, {info['launches_per_step']:.0f} "
+            f"launches; top kernels "
+            f"{[(k[:40], round(t, 3)) for k, t in info['top_kernels_ms_per_step']]}")
+    else:
+        log("phase 5 where a decode step goes: the profiler reported no device "
+            "time; device busy share not measured")
+    return info
 
 
 def phase_dense(model, prompts, outputs, max_new):
@@ -321,13 +384,13 @@ def phase_transfer(cfg, gen):
         rest[idx_d] = False
         if b[:, rest].abs().sum().item() != 0:
             fail("the transfer wrote outside the destination pages")
-    log(f"phase 5 cross-pod handoff: {n} pages x {L} layers x K,V = {moved} bytes, "
+    log(f"phase 6 cross-pod handoff: {n} pages x {L} layers x K,V = {moved} bytes, "
         f"bitwise equal; {2 * L} gathers + {2 * L} scatters in {1e3 * dt:.2f} ms")
     return src, sp, {"bytes": moved, "ms": 1e3 * dt, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
-# phase 6: times
+# phase 7: times
 # ---------------------------------------------------------------------------
 def phase_times(gen, main_lens, src_pool, src_pages):
     import torch.nn.functional as F
@@ -392,7 +455,7 @@ def phase_times(gen, main_lens, src_pool, src_pages):
     }
     for name in ("gather_pages", "scatter_pages"):
         out[name]["GB_per_s"] = nbytes / out[name]["ms"] / 1e6
-    log("phase 6 times (ms, median of %d, L2 flushed): %s" % (SAMPLES, json.dumps(
+    log("phase 7 times (ms, median of %d, L2 flushed): %s" % (SAMPLES, json.dumps(
         {k: {m: round(v, 5) for m, v in d.items() if isinstance(v, float)}
          for k, d in out.items()})))
     return out
@@ -445,9 +508,10 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: {cfg.name} {cfg.num_layers} layers, {n_params / 1e9:.2f} B "
         f"params, initialised in {time.perf_counter() - t0:.1f} s")
-    outputs, serve = phase_serve(cfg, model, prompts, extra, args.max_new)
+    eng, outputs, serve = phase_serve(cfg, model, prompts, extra, args.max_new)
     dense = phase_dense(model, prompts + extra, outputs, args.max_new)
-    del model
+    prof = phase_profile(eng, prompts, args.max_new)
+    del eng, model
     torch.cuda.empty_cache()
     src_pool, src_pages, transfer = phase_transfer(cfg, gen)
     times = phase_times(gen, main_lens, src_pool, src_pages)
@@ -472,7 +536,8 @@ def main() -> int:
     } for name, (src, tpu, launches) in sources.items()]
 
     result = {"card": card, "build_s": t_build, "serve": serve, "dense": dense,
-              "transfer": transfer, "times": times, "kernels": kernels}
+              "profile": prof, "transfer": transfer, "times": times,
+              "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -14,6 +14,8 @@ import torch
 from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128, 256)   # a lane owns D/32 columns: 2, 4 or 8
+MAX_Q_PER_KV = 8             # query rows per KV head held in registers
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -43,15 +45,15 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tab, seq_lens, perm_bits,
     P, T, Hkv, D2 = k_pool.shape
     MAXP = block_tab.shape[1]
     _require(v_pool.shape == k_pool.shape and D2 == D, "pool shape mismatch")
-    _require(Hq % Hkv == 0, "Hq must be a multiple of Hkv")
+    _require(Hq % Hkv == 0 and Hq // Hkv <= MAX_Q_PER_KV,
+             f"Hq/Hkv must be a whole number <= {MAX_Q_PER_KV}")
     _require(tuple(block_tab.shape) == (B, MAXP)
              and tuple(seq_lens.shape) == (B,), "block_tab/seq_lens shape")
     _require(tuple(perm_bits.shape) == (P,) and tuple(bitmap.shape) == (P,)
              and tuple(sandbox.shape) == (3,), "perm_bits/bitmap/sandbox shape")
-    _require(D * q.element_size() % 16 == 0,
-             "a head row must be a multiple of 16 bytes (16-byte loads)")
-    _require(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
-             "pools must be 16-byte aligned")
+    _require(D in HEAD_DIMS, f"head_dim must be one of {HEAD_DIMS}")
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool)),
+             "q and the pools must be 16-byte aligned (vector loads)")
 
     out = torch.empty_like(q)
     oob = torch.empty((B,), dtype=torch.int32, device=dev)
