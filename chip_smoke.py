@@ -177,7 +177,6 @@ def phase_kernels(gen, main_lens):
             bitmap[bt[1, :2].long()] = 0
         cases[name] = check_k1(args, TOL_F32, expect_oob=expect)
 
-    k2_err = 0.0
     for dtype in (torch.bfloat16, torch.float32, torch.int32):
         for W in (8192, 7):            # 16-byte vector path and byte path
             pool = (torch.randn((1024, W), generator=gen, device="cuda") * 1000).to(dtype)
@@ -198,8 +197,9 @@ def phase_kernels(gen, main_lens):
         f"{k1_err:.3e}; sandbox cases "
         f"{ {k: f'{v:.1e}' for k, v in cases.items()} }; gather/scatter bitwise "
         "for bf16/f32/i32 with clamped ids")
+    # K2 either matches bitwise or the phase has failed
     return {"paged_attention": max(k1_err, *cases.values()),
-            "gather_pages": k2_err, "scatter_pages": k2_err}
+            "gather_pages": 0.0, "scatter_pages": 0.0}
 
 
 # ---------------------------------------------------------------------------

@@ -4,10 +4,9 @@ A ``GlobalAddr`` is a packed 64-bit integer::
 
     [ heap_id : 16 | page : 24 | offset : 24 ]
 
-``heap_id`` is assigned by the orchestrator and unique per cluster, so an
-address minted by one process dereferences to the same object in every
-process that maps the heap. ``NULL`` is all-ones (heap_id 0xFFFF is
-reserved).
+so a heap holds at most ``MAX_PAGES`` pages. The slice hands page ids,
+not packed addresses, to the kernels; the RPC plane's slice brings the
+packing back with the ring.
 """
 
 from __future__ import annotations
@@ -16,18 +15,4 @@ HEAP_BITS = 16
 PAGE_BITS = 24
 OFF_BITS = 24
 
-MAX_HEAPS = (1 << HEAP_BITS) - 1  # top id reserved for NULL
 MAX_PAGES = 1 << PAGE_BITS
-MAX_OFFSET = 1 << OFF_BITS
-
-NULL = (1 << (HEAP_BITS + PAGE_BITS + OFF_BITS)) - 1
-
-
-def pack(heap_id: int, page: int, offset: int = 0) -> int:
-    if not (0 <= heap_id < MAX_HEAPS):
-        raise ValueError(f"heap_id out of range: {heap_id}")
-    if not (0 <= page < MAX_PAGES):
-        raise ValueError(f"page out of range: {page}")
-    if not (0 <= offset < MAX_OFFSET):
-        raise ValueError(f"offset out of range: {offset}")
-    return (heap_id << (PAGE_BITS + OFF_BITS)) | (page << OFF_BITS) | offset

@@ -176,9 +176,6 @@ class SharedHeap:
         self.perm_epoch += 1
         self._device_dirty = True
 
-    def addr_of_page(self, page: int, offset: int = 0) -> int:
-        return gaddr.pack(self.heap_id, page, offset)
-
     # ------------------------------------------------------------------
     # device mirror (perm bits consumed by the sandboxed kernel)
     # ------------------------------------------------------------------

@@ -81,10 +81,6 @@ class ModelConfig:
     sub_quadratic: bool = False
     param_dtype: str = "bfloat16"
 
-    @property
-    def q_per_kv(self) -> int:
-        return self.num_heads // self.num_kv_heads
-
     def block_pattern(self) -> List[LayerSpec]:
         """The repeating super-block of the layer stack."""
         period = 1
