@@ -392,7 +392,7 @@ def phase_transfer(cfg, gen):
 # ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
-def phase_times(gen, main_lens, src_pool, src_pages):
+def phase_times(gen, main_lens, src_pool, src_pages, card):
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
@@ -455,7 +455,7 @@ def phase_times(gen, main_lens, src_pool, src_pages):
     }
     for name in ("gather_pages", "scatter_pages"):
         out[name]["GB_per_s"] = nbytes / out[name]["ms"] / 1e6
-    log("phase 7 times (ms, median of %d, L2 flushed): %s" % (SAMPLES, json.dumps(
+    log("phase 7 times on %s (ms, median of %d, L2 flushed): %s" % (card, SAMPLES, json.dumps(
         {k: {m: round(v, 5) for m, v in d.items() if isinstance(v, float)}
          for k, d in out.items()})))
     return out
@@ -514,7 +514,7 @@ def main() -> int:
     del eng, model
     torch.cuda.empty_cache()
     src_pool, src_pages, transfer = phase_transfer(cfg, gen)
-    times = phase_times(gen, main_lens, src_pool, src_pages)
+    times = phase_times(gen, main_lens, src_pool, src_pages, card)
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
