@@ -1,6 +1,7 @@
-"""Import guard for the port: ``src/repro_torch`` and ``chip_smoke.py``
-import neither jax nor anything of the reference package, and every
-on-path kernel has its CUDA source."""
+"""Import guard for the port: ``src/repro_torch``, ``chip_smoke.py`` and
+the card-only tests (run where jax is not installed) import neither jax
+nor anything of the reference package, and every on-path kernel has its
+CUDA source."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _forbidden(module: str) -> bool:
