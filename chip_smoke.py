@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
-    python3 chip_smoke.py [--layers N]
+    python3 chip_smoke.py
 
 Phases, one printed line each; any failure raises and exits non-zero
 before the result line is printed:
@@ -10,8 +10,8 @@ before the result line is printed:
    from ``src/repro_torch/csrc`` (timed as set-up);
 2. every kernel against its plain PyTorch version on the card, at the
    slice's shapes, plus the sandbox cases and clamped page ids;
-3. the main path: yi-9b at full width (48 layers; ``--layers`` cuts
-   depth) with random weights from a seed, served by ``ServeEngine``:
+3. the main path: yi-9b at full width and depth (48 layers) with random
+   weights from a seed, served by ``ServeEngine``:
    8 concurrent ``generate_tokens`` streams, then 3 requests through
    ``submit``/``run_until_drained``; the kernel launch counts are read
    around this run alone;
@@ -30,13 +30,11 @@ jax or of the reference package. Also writes its measurements to
 
 from __future__ import annotations
 
-import argparse
 import json
 import math
 import subprocess
 import sys
 import time
-from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -45,8 +43,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
-TOL_BF16 = dict(atol=5e-2, rtol=5e-2)   # the reference's kernel-test tolerances
+TOL_BF16 = dict(atol=5e-2, rtol=5e-2)   # the reference's tolerance: near-tie rule
 TOL_F32 = dict(atol=5e-5, rtol=1e-4)
+# paged_attention alone in bf16: kernel and plain version both accumulate in
+# fp32, so they differ by about the output's bf16 rounding
+TOL_K1_BF16 = dict(atol=2e-3, rtol=1e-2)
+MAX_NEW = 16                            # new tokens per stream and request
 SAMPLES = 25
 
 
@@ -147,12 +149,16 @@ def phase_kernels(gen, main_lens):
     from repro_torch.kernels.scope_copy.kernel import gather_pages_cuda, scatter_pages_cuda
     from repro_torch.kernels.scope_copy.ref import gather_pages_ref, scatter_pages_ref
 
-    k1_err = check_k1(k1_inputs(gen, lens=main_lens), TOL_BF16)
+    # the slice shape at the main path's lengths: up to 30 in-use pages, so
+    # each of the kernel's 8 warps carries its softmax across several pages
+    k1_err = check_k1(k1_inputs(gen, lens=main_lens), TOL_K1_BF16)
+    k1_err = max(k1_err, check_k1(k1_inputs(gen, lens=main_lens, dtype=torch.float32),
+                                  TOL_F32))
     for B, Hq, Hkv, D, T, dtype in ((2, 4, 1, 64, 8, torch.float32),
                                     (3, 8, 1, 128, 16, torch.float32),
                                     (4, 16, 4, 128, 16, torch.bfloat16),
-                                    (2, 8, 8, 256, 8, torch.bfloat16)):
-        tol = TOL_F32 if dtype == torch.float32 else TOL_BF16
+                                    (2, 16, 2, 64, 8, torch.bfloat16)):
+        tol = TOL_F32 if dtype == torch.float32 else TOL_K1_BF16
         err = check_k1(k1_inputs(gen, B=B, Hq=Hq, Hkv=Hkv, D=D, P=64, T=T,
                                  MAXP=6, dtype=dtype), tol)
         k1_err = max(k1_err, err)
@@ -192,8 +198,8 @@ def phase_kernels(gen, main_lens):
                 fail(f"gather_pages differs from its plain version ({dtype}, W={W})")
             if not torch.equal(scattered, scatter_pages_ref(pool.clone(), dst_pages, buf)):
                 fail(f"scatter_pages differs from its plain version ({dtype}, W={W})")
-    log(f"phase 2 kernels vs plain: paged_attention at the slice shape (bf16 "
-        f"B=8 Hq=32 Hkv=4 D=128 T=16 MAXP=64) and a D/GQA/dtype sweep, max|err| "
+    log(f"phase 2 kernels vs plain: paged_attention at the slice shape (bf16 and "
+        f"f32, B=8 Hq=32 Hkv=4 D=128 T=16 MAXP=64) and a D/GQA/dtype sweep, max|err| "
         f"{k1_err:.3e}; sandbox cases "
         f"{ {k: f'{v:.1e}' for k, v in cases.items()} }; gather/scatter bitwise "
         "for bf16/f32/i32 with clamped ids")
@@ -410,7 +416,7 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
     P, T, Hkv, _ = kp.shape
     pages_used = [math.ceil(int(n) / T) for n in lens.tolist()]
     tok_total = int(lens.sum())
-    kv_bytes = 2 * sum(pages_used) * T * Hkv * D * kp.element_size()
+    kv_bytes = 2 * tok_total * Hkv * D * kp.element_size()   # valid tokens only
     io_bytes = 2 * q.numel() * q.element_size() + B * 4 * 2 \
         + sum(pages_used) * 4 * 3      # block-table, perm, bitmap entries read
     flops = 4 * Hq * D * tok_total
@@ -463,12 +469,6 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
 
 # ---------------------------------------------------------------------------
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=0,
-                    help="cut yi-9b's depth to N layers (default: all 48)")
-    ap.add_argument("--max-new", type=int, default=16)
-    args = ap.parse_args()
-
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
@@ -492,12 +492,10 @@ def main() -> int:
         f"{torch.version.cuda}), kernels built in {t_build:.1f} s; ptxas: {ptxas}")
 
     cfg = get_config("yi_9b")
-    if args.layers:
-        cfg = replace(cfg, num_layers=args.layers)
     rng = np.random.default_rng(0)
     prompts = make_prompts(rng, 8, cfg.vocab_size)
     extra = make_prompts(rng, 3, cfg.vocab_size)
-    main_lens = [len(p) + args.max_new for p in prompts]
+    main_lens = [len(p) + MAX_NEW for p in prompts]
     gen = torch.Generator("cuda").manual_seed(1)
 
     errs = phase_kernels(gen, main_lens)
@@ -508,9 +506,9 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: {cfg.name} {cfg.num_layers} layers, {n_params / 1e9:.2f} B "
         f"params, initialised in {time.perf_counter() - t0:.1f} s")
-    eng, outputs, serve = phase_serve(cfg, model, prompts, extra, args.max_new)
-    dense = phase_dense(model, prompts + extra, outputs, args.max_new)
-    prof = phase_profile(eng, prompts, args.max_new)
+    eng, outputs, serve = phase_serve(cfg, model, prompts, extra, MAX_NEW)
+    dense = phase_dense(model, prompts + extra, outputs, MAX_NEW)
+    prof = phase_profile(eng, prompts, MAX_NEW)
     del eng, model
     torch.cuda.empty_cache()
     src_pool, src_pages, transfer = phase_transfer(cfg, gen)

@@ -7,10 +7,10 @@
 // seal bit; enforce=0 leaves the bounds check only). A violating page is
 // masked and counted once per sequence in oob.
 //
-// Bound on the card: HBM bytes. Each block reads the in-use K and V pages
-// of its (sequence, KV head) once, so the least time is the in-use K+V
-// bytes over 3.35 TB/s; the FLOPs (4·Hq·D per token) are far below the
-// tensor-core roofline.
+// Bound on the card: HBM bytes. Each block reads the K and V rows of its
+// (sequence, KV head) valid tokens once, so the least time is those
+// bytes (2·Σseq_len·Hkv·D·itemsize) over 3.35 TB/s; the FLOPs (4·Hq·D per
+// token) are far below the tensor-core roofline.
 //
 // Design. The TPU walks the page axis as a sequential grid dimension and
 // carries (m, l, acc) in VMEM scratch. Here one block owns one
@@ -288,9 +288,6 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool, const void* 
     case 128:
       return launch<T_in, 4>(q, k_pool, v_pool, block_tab, seq_lens, perm, sandbox, bitmap, out,
                              oob, B, Hq, Hkv, P, T, MAXP, s);
-    case 256:
-      return launch<T_in, 8>(q, k_pool, v_pool, block_tab, seq_lens, perm, sandbox, bitmap, out,
-                             oob, B, Hq, Hkv, P, T, MAXP, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -299,7 +296,7 @@ int launch_d(const void* q, const void* k_pool, const void* v_pool, const void* 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
-// D ∈ {64, 128, 256}; Hq / Hkv ≤ 8. Returns cudaGetLastError() after the
+// D ∈ {64, 128}; Hq / Hkv ≤ 8. Returns cudaGetLastError() after the
 // launch (0 = launched).
 extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
                                       const void* block_tab, const void* seq_lens,

@@ -14,7 +14,7 @@ import torch
 from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)   # a lane owns D/32 columns: 2, 4 or 8
+HEAD_DIMS = (64, 128)   # a lane owns D/32 columns: 2 or 4
 MAX_Q_PER_KV = 8             # query rows per KV head held in registers
 
 
