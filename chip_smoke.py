@@ -8,20 +8,33 @@ before the result line is printed:
 
 1. environment: the card's name and power limit; build the CUDA kernels
    from ``src/repro_torch/csrc`` (timed as set-up);
-2. every kernel against its plain PyTorch version on the card, at the
-   slice's shapes, plus the sandbox cases and clamped page ids;
-3. the main path: yi-9b at full width and depth (48 layers) with random
-   weights from a seed, served by ``ServeEngine``:
-   8 concurrent ``generate_tokens`` streams, then 3 requests through
-   ``submit``/``run_until_drained``; the kernel launch counts are read
-   around this run alone;
+2. the paged-attention and page-copy kernels against their plain PyTorch
+   versions on the card, at the yi-9b slice's shapes, plus the sandbox
+   cases and clamped page ids;
+3. yi-9b at full width and depth (48 layers) with random weights from a
+   seed, served by ``ServeEngine``: 8 concurrent ``generate_tokens``
+   streams, then 3 requests through ``submit``/``run_until_drained``; the
+   kernel launch counts are read around this run alone;
 4. end-to-end check of the paged kernel: the same prompts through the
    dense-cache ``Model.prefill`` + ``Model.decode_step`` chain;
-5. where a decode step's time goes, from ``torch.profiler``;
+5. where a yi-9b decode step's time goes, from ``torch.profiler``;
 6. cross-pod handoff between two full-width pools (gather/scatter);
 7. times with CUDA events (median over samples, L2 flushed before each);
-8. a ``{"kernels": [...]}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. the SSD intra-chunk kernel against its plain version at mamba2-1.3b's
+   batched prefill shape in bf16 and f32, with chunk decays above 88
+   (where an unmasked exp overflows), and a sweep of the chunked scan
+   through the kernel against the recurrence;
+9. mamba2-1.3b at full width and depth (48 layers), random weights from
+   a seed: 8 requests prefilled alone through ``Model.prefill`` (the SSD
+   kernel's launch count is read around these prefills), their caches
+   joined on the batch axis, 16 greedy ``Model.decode_step``s at B=8;
+10. end-to-end check of the SSD kernel: an fp32 copy of the model,
+    teacher-forced decode steps against prefills of the same prefixes;
+11. mamba2 times: the SSD kernel, a batched 8 x 512 prefill, and a B=8
+    decode step under ``torch.profiler``;
+
+then a ``{"kernels": [...]}`` line, the card line, and last
+``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); imports nothing of
 jax or of the reference package. Also writes its measurements to
@@ -30,6 +43,7 @@ jax or of the reference package. Also writes its measurements to
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -50,6 +64,14 @@ TOL_F32 = dict(atol=5e-5, rtol=1e-4)
 TOL_K1_BF16 = dict(atol=2e-3, rtol=1e-2)
 MAX_NEW = 16                            # new tokens per stream and request
 SAMPLES = 25
+# ssd_intra_chunk alone: kernel and plain version get the same inputs and both
+# accumulate in fp32, so they differ by summation order, scaled to the output
+TOL_K4 = 1e-4
+TOL_SCAN = dict(atol=2e-3, rtol=2e-3)   # chunked vs recurrence (tests/test_kernels.py:165)
+TOL_TF = 1e-3          # fp32 decode vs prefill (tests/test_arch_smoke.py:113)
+TOL_TF_MAX = 1e-2      # ... where 48 layers need more: printed, never beyond this
+# mamba2-1.3b's SSD at the batched prefill of 8 x 512 tokens
+SSD_SHAPE = dict(B=8, S=512, H=64, P=64, N=128, Q=128)
 
 
 def log(msg: str) -> None:
@@ -273,52 +295,63 @@ def phase_serve(cfg, model, prompts, extra, max_new):
     return eng, streams + results, info
 
 
-def phase_profile(eng, prompts, max_new, steps=4):
-    """Where a decode step's time goes: a few batched steps at B=8 under
-    torch.profiler; device time by kernel against the host clock. Only
-    device events are summed: an operator's own entry also carries the
-    time of the kernels it launched, which would count them twice."""
+def profile_steps(step, dev, steps=4):
+    """``steps`` calls of ``step`` timed on the host clock, then the same
+    under torch.profiler: device time by kernel against the host clock.
+    Only device events are summed: an operator's own entry also carries
+    the time of the kernels it launched, which would count them twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gens = [eng.generate_tokens(p, max_new) for p in prompts]
-    for g in gens:
-        next(g)                       # the prefill token; no step yet
     def run_steps():
-        sync(eng.device)
+        sync(dev)
         t0 = time.perf_counter()
-        with eng._decode_lock:
-            for _ in range(steps):
-                eng.scheduler.step_batch()
-        sync(eng.device)
+        for _ in range(steps):
+            step()
+        sync(dev)
         return 1e3 * (time.perf_counter() - t0) / steps
 
     wall_ms = run_steps()             # the same steps, no profiler attached
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         prof_wall_ms = run_steps()
-    for g in gens:
-        g.close()
     kernels = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
                for e in prof.key_averages()
                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
     busy_ms = sum(t for _, t, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    info = {"steps": steps, "wall_ms_per_step": wall_ms,
+    return {"steps": steps, "wall_ms_per_step": wall_ms,
             "profiled_wall_ms_per_step": prof_wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "launches_per_step": sum(c for _, _, c in kernels),
             "top_kernels_ms_per_step": [(k[:80], t) for k, t, _ in top]}
-    if busy_ms:
-        log(f"phase 5 where a decode step goes (B=8, {steps} steps, then the "
-            f"same under the profiler): {wall_ms:.2f} ms wall ({prof_wall_ms:.2f} "
-            f"profiled), {busy_ms:.2f} ms device busy, idle share "
-            f"{info['device_idle_share']:.3f}, {info['launches_per_step']:.0f} "
-            f"launches; top kernels "
+
+
+def profile_line(info) -> str:
+    if not info["device_busy_ms_per_step"]:
+        return "the profiler reported no device time; device busy share not measured"
+    return (f"{info['wall_ms_per_step']:.2f} ms wall ({info['profiled_wall_ms_per_step']:.2f} "
+            f"profiled), {info['device_busy_ms_per_step']:.2f} ms device busy, idle share "
+            f"{info['device_idle_share']:.3f}, {info['launches_per_step']:.0f} launches; "
+            f"top kernels "
             f"{[(k[:40], round(t, 3)) for k, t in info['top_kernels_ms_per_step']]}")
-    else:
-        log("phase 5 where a decode step goes: the profiler reported no device "
-            "time; device busy share not measured")
+
+
+def phase_profile(eng, prompts, max_new):
+    """Where a yi-9b decode step's time goes: batched steps at B=8."""
+    gens = [eng.generate_tokens(p, max_new) for p in prompts]
+    for g in gens:
+        next(g)                       # the prefill token; no step yet
+
+    def step():
+        with eng._decode_lock:
+            eng.scheduler.step_batch()
+
+    info = profile_steps(step, eng.device)
+    for g in gens:
+        g.close()
+    log(f"phase 5 where a decode step goes (B=8, {info['steps']} steps, then the "
+        f"same under the profiler): {profile_line(info)}")
     return info
 
 
@@ -468,6 +501,268 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 8-11: mamba2-1.3b prefill (SSD kernel) and decode
+# ---------------------------------------------------------------------------
+def ssd_inputs(gen, B, S, H, P, N, dtype, decay="strong"):
+    """``strong``: mamba2's init, A = -linspace(1, 16, H) and dt =
+    softplus(N(0,1) + dt_bias) with dt_bias drawn as the model draws it,
+    so 128-token chunk decays pass 88; ``weak``: small steps, so each
+    chunk carries most of its state into the next."""
+    dev = "cuda"
+    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(dtype)
+    Bm = torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+    Cm = torch.randn((B, S, N), generator=gen, device=dev).to(dtype)
+    if decay == "strong":
+        u = torch.rand((H,), generator=gen, device=dev)
+        dt0 = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+        dt_bias = torch.log(torch.expm1(dt0))
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, S, H), generator=gen, device=dev) + dt_bias)
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        dt = 0.005 + 0.045 * torch.rand((B, S, H), generator=gen, device=dev)
+        A = -torch.linspace(0.1, 1.0, H, device=dev)
+    return [x, dt, A, Bm, Cm]
+
+
+def scaled_close(got, want, rel=TOL_K4):
+    """|got - want| <= rel·max|want| + rel·|want|: fp32 summation order,
+    scaled to the output."""
+    return torch.allclose(got, want, rtol=rel, atol=rel * max(want.abs().max().item(), 1.0))
+
+
+def check_k4(args, Q):
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+    got = ssd_intra_chunk_cuda(*args, Q)
+    torch.cuda.synchronize()
+    err, scale = 0.0, 0.0
+    for name, g, w in zip(("y_diag", "states", "decay"), got,
+                          ssd_intra_chunk_ref(*args, Q)):
+        if not torch.isfinite(g).all():
+            fail(f"ssd_intra_chunk produced a non-finite {name}")
+        if not scaled_close(g, w):
+            fail(f"ssd_intra_chunk {name} disagrees with its plain version: max |err| "
+                 f"{(g - w).abs().max().item():.3e}, max |ref| {w.abs().max().item():.3e}")
+        err = max(err, (g - w).abs().max().item())
+        scale = max(scale, w.abs().max().item())
+    return err, scale
+
+
+def phase_ssd_kernel(gen, card):
+    """K4 against its plain version at mamba2-1.3b's batched prefill shape,
+    in bf16 and f32, then a sweep of the chunked scan through the kernel
+    against the recurrence and the plain chunked formulation."""
+    from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref, ssd_sequential_ref
+
+    sh = SSD_SHAPE
+    B, S, H, P, N, Q = (sh[k] for k in "BSHPNQ")
+    args = ssd_inputs(gen, B, S, H, P, N, torch.bfloat16)
+    chunk_decay = -(args[1] * args[2]).reshape(B, S // Q, Q, H).sum(2)
+    hot_heads = int((chunk_decay > 88).flatten(0, 1).any(0).sum())
+    if hot_heads == 0:
+        fail("no head's chunk decay passes 88: the overflow case is not exercised")
+    err, scale = {}, {}
+    err["bf16"], scale["bf16"] = check_k4(args, Q)
+    err["f32"], scale["f32"] = check_k4(ssd_inputs(gen, B, S, H, P, N, torch.float32), Q)
+
+    sweep_err = 0.0
+    cases = [(S_, Q_, H_, P_, N_) for S_ in (16, 100, 300)
+             for Q_, H_, P_, N_ in ((16, 8, 16, 16), (128, 64, 64, 128),
+                                    (16, 64, 16, 128), (128, 8, 64, 16),
+                                    (128, 12, 24, 17))]   # ragged head block and tiles
+    for S_, Q_, H_, P_, N_ in cases:
+        x, dt, A, Bm, Cm = ssd_inputs(gen, 2, S_, H_, P_, N_, torch.float32, "weak")
+        Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+        y, s = ssd_chunked(x, dt, A, Bm, Cm, chunk=Q_)
+        ys, ss = ssd_sequential_ref(x, dt, A, Bm, Cm)
+        yc, sc = ssd_chunked_ref(x, dt, A, Bm, Cm, chunk=Q_)
+        for got, want, plain in ((y, ys, yc), (s, ss, sc)):
+            if not (torch.allclose(got, want, **TOL_SCAN) and scaled_close(got, plain)):
+                fail(f"ssd_chunked on the card (S={S_} Q={Q_} H={H_} P={P_} N={N_}) "
+                     f"disagrees: max |err| vs recurrence {(got - want).abs().max().item():.3e}"
+                     f", vs plain chunked {(got - plain).abs().max().item():.3e}")
+            sweep_err = max(sweep_err, (got - want).abs().max().item())
+    x, dt, A, Bm, Cm = ssd_inputs(gen, 2, 300, 8, 64, 128, torch.float32, "weak")
+    Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+    _, s1 = ssd_chunked(x[:, :200], dt[:, :200], A, Bm[:, :200], Cm[:, :200], chunk=128)
+    y2, s2 = ssd_chunked(x[:, 200:], dt[:, 200:], A, Bm[:, 200:], Cm[:, 200:],
+                         chunk=128, init_state=s1)
+    ys, ss = ssd_sequential_ref(x, dt, A, Bm, Cm)
+    if not (torch.allclose(y2, ys[:, 200:], **TOL_SCAN) and torch.allclose(s2, ss, **TOL_SCAN)):
+        fail("ssd_chunked on the card does not continue from a carried state")
+    log(f"phase 8 ssd_intra_chunk vs plain on {card}: B={B} S={S} H={H} P={P} N={N} Q={Q}, "
+        f"{hot_heads}/{H} heads with a chunk decay above 88 (max "
+        f"{chunk_decay.max().item():.1f}); max |err| bf16 {err['bf16']:.3e} (max |ref| "
+        f"{scale['bf16']:.3e}), f32 {err['f32']:.3e} (max |ref| {scale['f32']:.3e}); "
+        f"atol {TOL_K4:g}·max|ref|, rtol {TOL_K4:g}; "
+        f"{len(cases)}-case chunked sweep + continuation vs recurrence max |err| "
+        f"{sweep_err:.3e} (atol/rtol {TOL_SCAN['atol']:g})")
+    return {"max_abs_err": max(err.values()), "err": err, "max_abs_ref": scale,
+            "hot_heads": hot_heads,
+            "max_chunk_decay": chunk_decay.max().item(), "sweep_max_abs_err": sweep_err,
+            "args": args}
+
+
+def tree_cat(trees, dim):
+    first = trees[0]
+    return {k: tree_cat([t[k] for t in trees], dim) if isinstance(v, dict)
+            else torch.cat([t[k] for t in trees], dim=dim) for k, v in first.items()}
+
+
+def first_step_ties(batched, alone):
+    """Rows where the batched step picks another token than the stream
+    alone must be near-ties of the stream alone (top-2 gap within the
+    bf16 tolerance): B=8 and B=1 run different GEMM kernels, whose bf16
+    roundings part over 48 layers. A row joined from the wrong cache
+    differs everywhere, not at a near-tie."""
+    ties = []
+    for i, (b, a) in enumerate(zip(batched.argmax(-1).tolist(), alone.argmax(-1).tolist())):
+        if b != a:
+            top2 = torch.topk(alone[i], 2).values.tolist()
+            gap = top2[0] - top2[1]
+            if gap > TOL_BF16["atol"] + TOL_BF16["rtol"] * abs(top2[0]):
+                fail(f"stream {i}: the batched first step picks token {b}, the stream alone "
+                     f"{a}, with top-2 gap {gap:.4f} (no near-tie)")
+            ties.append({"stream": i, "gap": gap})
+    return ties
+
+
+def phase_mamba_serve(cfg, model, prompts, max_new, card):
+    """Each request prefilled alone (B=1) through the SSD kernel, the
+    caches joined on the batch axis, then greedy decode at B=8."""
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+
+    dev = model.device
+    ssd_intra_chunk_cuda.launches = 0
+    caches, first, prefill_ms = [], [], []
+    for prompt in prompts:
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(toks)
+        sync(dev)
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        if not torch.isfinite(logits).all():
+            fail("mamba2 prefill produced non-finite logits")
+        first.append(int(logits[0].argmax()))
+        caches.append(cache)
+    launches = ssd_intra_chunk_cuda.launches
+    if launches != cfg.num_layers * len(prompts):
+        fail(f"ssd_intra_chunk launched {launches} times, expected "
+             f"{cfg.num_layers} x {len(prompts)} prefill calls")
+
+    cache = tree_cat(caches, dim=1)       # leaves are (L, B, ...): batch is axis 1
+    tok = torch.tensor(first, dtype=torch.int32, device=dev)
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    alone = torch.cat([model.decode_step(tok[i:i + 1], pos[i:i + 1], caches[i])[0]
+                       for i in range(len(prompts))])
+    streams = [tok]
+    sync(dev)
+    t0 = time.perf_counter()
+    for k in range(max_new):
+        logits, cache = model.decode_step(streams[-1], pos + k, cache)
+        if k == 0:
+            batch_err = (logits - alone).abs().max().item()
+            batch_ties = first_step_ties(logits, alone)
+        streams.append(logits.argmax(-1).to(torch.int32))
+    sync(dev)
+    t_decode = time.perf_counter() - t0
+    if not torch.isfinite(logits).all():
+        fail("mamba2 decode produced non-finite logits")
+    tokens = torch.stack(streams, dim=1).tolist()
+    if [t[0] for t in tokens] != first:
+        fail("a stream does not start from the argmax of its own prefill")
+    step_ms = 1e3 * t_decode / max_new
+    info = {"prompt_lens": [len(p) for p in prompts], "prefill_ms": prefill_ms,
+            "launches": launches, "batched_vs_alone_max_abs_err": batch_err,
+            "batched_vs_alone_near_ties": batch_ties,
+            "decode_step_ms_b8": step_ms,
+            "decode_tokens_per_s_b8": len(prompts) * max_new / t_decode}
+    log(f"phase 9 mamba2 main path on {card}: {len(prompts)} prefills alone (lengths "
+        f"{info['prompt_lens']}), ssd_intra_chunk launches {launches} = "
+        f"{cfg.num_layers} x {len(prompts)}, prefill ms {[round(t, 1) for t in prefill_ms]}; "
+        f"caches joined, {max_new} greedy steps at B={len(prompts)}: logits finite, first "
+        f"step vs each stream alone: tokens equal but at near-ties {batch_ties}, max "
+        f"|Δlogit| {batch_err:.3e}; decode step {step_ms:.2f} ms, "
+        f"{info['decode_tokens_per_s_b8']:.1f} tokens/s")
+    return cache, tok, pos, info
+
+
+def phase_teacher_forced(model, cfg, rng, card, K=200, steps=8):
+    """An fp32 copy of the model: each decode step's logits against a
+    prefill of the prefix plus that token. The decode recurrence uses no
+    kernel, so this holds the SSD kernel against an independent
+    computation at full depth."""
+    m32 = copy.deepcopy(model).float()
+    dev = model.device
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(2, K + steps)).astype(
+        np.int32)).to(dev)
+    logits, cache = m32.prefill(toks[:, :K])
+    errs = []
+    for t in range(K, K + steps):
+        ref, _ = m32.prefill(toks[:, : t + 1])
+        logits, cache = m32.decode_step(toks[:, t], torch.full((2,), t, dtype=torch.int32,
+                                                               device=dev), cache)
+        errs.append((logits - ref).abs().max().item())
+        if not torch.equal(logits.argmax(-1), ref.argmax(-1)):
+            fail(f"fp32 decode step {t} picks another token than the prefill of its prefix")
+    err = max(errs)
+    if err > TOL_TF_MAX:
+        fail(f"fp32 decode vs prefill max |err| {err:.3e} > {TOL_TF_MAX:g}")
+    note = ("" if err <= TOL_TF else
+            f"; above the reference's {TOL_TF:g} (tests/test_arch_smoke.py:113) at 48 layers")
+    del m32
+    torch.cuda.empty_cache()
+    log(f"phase 10 fp32 teacher forcing on {card}: B=2, prefill {K} tokens (2 chunks, "
+        f"padded), {steps} decode steps each against a prefill of its prefix: max |err| "
+        f"{err:.3e} (atol {TOL_TF:g}), argmax equal{note}")
+    return {"max_abs_err": err, "per_step": errs}
+
+
+def phase_mamba_times(model, ssd_args, cache, tok, pos, card):
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+    from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
+
+    timer = Timer()
+    sh = SSD_SHAPE
+    B, S, H, P, N, Q = (sh[k] for k in "BSHPNQ")
+    nc = S // Q
+    nbytes = sum(t.numel() * t.element_size() for t in ssd_args) \
+        + 4 * (B * S * H * P + B * nc * H * N * P + B * nc * H)
+    flops = B * nc * (2 * Q * Q * N + H * (2 * Q * Q * P + 2 * Q * N * P))
+    b_ms, b_by = bound_ms(nbytes, flops)
+    k4 = {"ms": timer.ms(lambda: ssd_intra_chunk_cuda(*ssd_args, Q)),
+          "plain_ms": timer.ms(lambda: ssd_intra_chunk_ref(*ssd_args, Q)),
+          "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+          "flops": flops}
+
+    toks = torch.randint(1, model.cfg.vocab_size, (8, 512), dtype=torch.int32,
+                         device=model.device)
+    prefill_ms = timer.ms(lambda: model.prefill(toks))
+    prefill_prof = profile_steps(lambda: model.prefill(toks), model.device, steps=2)
+    state = {"tok": tok, "k": 0}
+
+    def step():
+        logits, _ = model.decode_step(state["tok"], pos + state["k"], cache)
+        state["tok"] = logits.argmax(-1).to(torch.int32)
+        state["k"] += 1
+
+    prof = profile_steps(step, model.device)
+    info = {"ssd_intra_chunk": k4, "prefill_8x512_ms": prefill_ms,
+            "prefill_8x512_tokens_per_s": 8 * 512 / prefill_ms * 1e3,
+            "prefill_8x512_profile": prefill_prof, "decode_profile_b8": prof}
+    log(f"phase 11 mamba2 times on {card} (ms, median of {SAMPLES}, L2 flushed): "
+        f"ssd_intra_chunk {k4['ms']:.4f}, plain {k4['plain_ms']:.4f}, bound "
+        f"{b_ms:.4f} ({b_by}; {nbytes} bytes, {flops} flops), library none; prefill "
+        f"8x512 {prefill_ms:.2f} ms ({info['prefill_8x512_tokens_per_s']:.0f} tokens/s, "
+        f"{model.cfg.num_layers} K4 launches inside; 2 more, then 2 under the profiler: "
+        f"{profile_line(prefill_prof)}); decode step at B=8 ({prof['steps']} steps, then the "
+        f"same under the profiler): {profile_line(prof)}")
+    return info
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -513,6 +808,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     src_pool, src_pages, transfer = phase_transfer(cfg, gen)
     times = phase_times(gen, main_lens, src_pool, src_pages, card)
+    del src_pool
+    torch.cuda.empty_cache()
+
+    mcfg = get_config("mamba2_1p3b")
+    ssd = phase_ssd_kernel(gen, card)
+    errs["ssd_intra_chunk"] = ssd.pop("max_abs_err")
+    t0 = time.perf_counter()
+    mamba = build_model(mcfg).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in mamba.parameters())
+    log(f"model: {mcfg.name} {mcfg.num_layers} layers, {n_params / 1e9:.2f} B params "
+        f"(analytic {mcfg.param_count() / 1e9:.2f} B), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    m_prompts = make_prompts(rng, 8, mcfg.vocab_size)
+    cache, tok, pos, m_serve = phase_mamba_serve(mcfg, mamba, m_prompts, MAX_NEW, card)
+    m_tf = phase_teacher_forced(mamba, mcfg, rng, card)
+    m_times = phase_mamba_times(mamba, ssd.pop("args"), cache, tok, pos, card)
+    times["ssd_intra_chunk"] = m_times["ssd_intra_chunk"]
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -524,6 +837,8 @@ def main() -> int:
         "scatter_pages": ("src/repro_torch/csrc/scope_copy.cu",
                           "src/repro/kernels/scope_copy/kernel.py:75",
                           transfer["launches"]["scatter_pages"]),
+        "ssd_intra_chunk": ("src/repro_torch/csrc/ssd.cu",
+                            "src/repro/kernels/ssd/kernel.py:77", m_serve["launches"]),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -535,7 +850,8 @@ def main() -> int:
 
     result = {"card": card, "build_s": t_build, "serve": serve, "dense": dense,
               "profile": prof, "transfer": transfer, "times": times,
-              "kernels": kernels}
+              "ssd_kernel": ssd, "mamba_serve": m_serve, "mamba_teacher_forced": m_tf,
+              "mamba_times": m_times, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

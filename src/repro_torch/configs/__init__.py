@@ -12,9 +12,9 @@ from typing import Dict, List
 
 from ..models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["yi_9b"]
+ARCH_IDS: List[str] = ["yi_9b", "mamba2_1p3b"]
 
-ALIASES: Dict[str, str] = {"yi-9b": "yi_9b"}
+ALIASES: Dict[str, str] = {"yi-9b": "yi_9b", "mamba2-1.3b": "mamba2_1p3b"}
 
 
 def _module(arch: str):

@@ -1,3 +1,4 @@
 """Hand-written CUDA kernels for Hopper, each beside its plain PyTorch
-version: ``paged_attention`` and ``scope_copy`` (gather/scatter pages).
+version: ``paged_attention``, ``scope_copy`` (gather/scatter pages) and
+``ssd`` (the Mamba-2 SSD intra-chunk scan).
 ``build`` compiles ``csrc/*.cu`` at first use."""

@@ -41,6 +41,8 @@ SIGNATURES = {
     "gather_pages_launch": [_P] * 3 + [_I] * 3 + [_P],
     # pool, buf, pages, n, row_bytes, P, stream
     "scatter_pages_launch": [_P] * 3 + [_I] * 3 + [_P],
+    # x, dt, A, Bm, Cm, y, states, decay, B, S, H, P, N, Q, dtype code, stream
+    "ssd_intra_chunk_launch": [_P] * 8 + [_I] * 7 + [_P],
 }
 ERROR_STRING = "repro_cuda_error_string"
 

@@ -1,4 +1,4 @@
-"""Dense-family model: config, layers, attention, stack, Model."""
+"""Dense and Mamba-2 SSM models: config, layers, attention, SSM, stack, Model."""
 
 from .config import LayerSpec, ModelConfig
 from .model import Model, build_model

@@ -1,8 +1,9 @@
 """Model configuration — the architecture dataclass and its super-block.
 
 The field set is the reference package's, so a config built here names
-the same architecture; the slice serves the dense family (``rmsnorm``,
-``rope``, ``swiglu``). ``block_pattern()`` factors the layer stack into a
+the same architecture; the port serves the dense family (``rmsnorm``,
+``rope``, ``swiglu``) and the Mamba-2 SSM family (``d_inner``,
+``ssm_heads``). ``block_pattern()`` factors the layer stack into a
 repeating *super-block*; the stacked parameters carry one leading layer
 axis per pattern position.
 """
@@ -81,6 +82,14 @@ class ModelConfig:
     sub_quadratic: bool = False
     param_dtype: str = "bfloat16"
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def block_pattern(self) -> List[LayerSpec]:
         """The repeating super-block of the layer stack."""
         period = 1
@@ -121,3 +130,26 @@ class ModelConfig:
     @property
     def num_blocks(self) -> int:
         return self.num_layers // len(self.block_pattern())
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + per-layer), the
+        reference's formula for the ported families (dense, ssm)."""
+        d, v = self.d_model, self.vocab_size
+        total = d * v
+        if not self.tie_embeddings:
+            total += d * v
+        for spec in self.block_pattern() * self.num_blocks:
+            if spec.kind == "attn":
+                total += d * self.num_heads * self.head_dim \
+                    + 2 * d * self.num_kv_heads * self.head_dim \
+                    + self.num_heads * self.head_dim * d
+            else:
+                di, ds, h = self.d_inner, self.ssm_state, self.ssm_heads
+                total += d * (2 * di + 2 * ds + h)      # in_z, in_x, in_B, in_C, in_dt
+                total += (di + 2 * ds) * self.ssm_conv  # conv
+                total += 2 * h                          # A_log, D
+                total += di * d                         # out_proj
+            if self.d_ff:
+                total += (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
+            total += 2 * d  # norms (approx)
+        return total

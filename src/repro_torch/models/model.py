@@ -1,4 +1,4 @@
-"""Top-level Model for the dense family: init, prefill, decode.
+"""Top-level Model for the dense and SSM families: init, prefill, decode.
 
 ``Model`` is an ``nn.ModuleDict`` whose parameter tree has the reference
 tree's key paths (``embed.tok``, ``stack.pos0.attn.wq``, ``norm_f.scale``)
@@ -35,12 +35,13 @@ def _to_module(tree: Mapping[str, Any]) -> nn.Module:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise for any architecture feature outside the ported dense family."""
+    """Raise for any architecture feature outside the ported families:
+    dense (RoPE, SwiGLU) and Mamba-2 SSM (no positions)."""
     unported = [
         name for name, bad in (
-            ("family", cfg.family != "dense"),
+            ("family", cfg.family not in ("dense", "ssm")),
             ("norm_kind", cfg.norm_kind != "rmsnorm"),
-            ("rope_kind", cfg.rope_kind != "rope"),
+            ("rope_kind", cfg.rope_kind != ("rope" if cfg.family == "dense" else "none")),
             ("mlp_kind", cfg.mlp_kind != "swiglu"),
             ("qk_norm", cfg.qk_norm),
             ("attn_bias", cfg.attn_bias),
@@ -94,7 +95,9 @@ class Model(nn.ModuleDict):
     # -- serving ------------------------------------------------------------
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
         """tokens: (B, S) int. Returns (last-token logits (B, V) fp32,
-        cache with leaves (L, B, cache_len, Hkv, D))."""
+        cache). An attention layer's cache leaves are (L, B, cache_len,
+        Hkv, D); an SSM layer's are the conv tails (L, B, K-1, C) in the
+        activation dtype and the SSD state (L, B, H, N, P) in fp32."""
         cfg = self.cfg
         B, S = tokens.shape
         cache_len = cache_len or S
@@ -108,8 +111,8 @@ class Model(nn.ModuleDict):
 
     def decode_step(self, token: torch.Tensor, pos: torch.Tensor,
                     cache: Params):
-        """token: (B,) int; pos: (B,) int. Returns (logits (B, V) fp32,
-        cache) — the cache is updated in place."""
+        """token: (B,) int; pos: (B,) int (unused by SSM layers). Returns
+        (logits (B, V) fp32, cache) — the cache is updated in place."""
         cfg = self.cfg
         x = embed_tokens(token[:, None], self["embed"], cfg.embed_scale,
                          cfg.d_model)

@@ -1,9 +1,10 @@
-"""Decoder stack, dense family.
+"""Decoder stack: dense global-attention layers and Mamba-2 SSM layers.
 
 Parameters for each super-block position are stacked over blocks with a
 leading layer axis (``stack.pos0.attn.wq`` is ``(L, d, H, Dh)``), as in
 the reference; the reference's ``lax.scan`` over that axis becomes a
-Python loop over layer slices (views, no copies).
+Python loop over layer slices (views, no copies). A layer has an MLP
+only when ``d_ff > 0`` (an SSM layer of mamba2 has none).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from .attention import attention_decode, attention_full, empty_cache, init_attention
 from .config import LayerSpec, ModelConfig
 from .layers import apply_norm, init_mlp, init_norm, mlp_apply
+from .ssm import empty_ssm_state, init_ssm, ssm_decode_step, ssm_forward
 
 Params = Dict[str, Any]
 
@@ -29,48 +31,64 @@ def tree_index(tree, i: int):
             for k, v in tree.items()}
 
 
-def _check_dense(spec: LayerSpec) -> None:
-    if spec.kind != "attn" or spec.moe or spec.cross_attn \
+def _check_ported(spec: LayerSpec) -> None:
+    if spec.kind not in ("attn", "ssm") or spec.moe or spec.cross_attn \
             or spec.sliding_window:
         raise NotImplementedError(
-            f"layer {spec} is not ported: the port serves dense "
-            "global-attention stacks")
+            f"layer {spec} is not ported: the port serves global-attention "
+            "and SSM layers without MoE or cross-attention")
 
 
 # ---------------------------------------------------------------------------
 # one layer
 # ---------------------------------------------------------------------------
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device=None) -> Params:
-    _check_dense(spec)
-    return {
-        "norm_in": init_norm(cfg.d_model, cfg.norm_kind, device),
-        "attn": init_attention(gen, cfg, device),
-        "norm_mlp": init_norm(cfg.d_model, cfg.norm_kind, device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, device),
-    }
+    _check_ported(spec)
+    p = {"norm_in": init_norm(cfg.d_model, cfg.norm_kind, device)}
+    if spec.kind == "attn":
+        p["attn"] = init_attention(gen, cfg, device)
+    else:
+        p["ssm"] = init_ssm(gen, cfg, device)
+    if cfg.d_ff > 0:
+        p["norm_mlp"] = init_norm(cfg.d_model, cfg.norm_kind, device)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, device)
+    return p
+
+
+def _mlp_residual(x, p, cfg: ModelConfig):
+    if "mlp" not in p:
+        return x
+    h = apply_norm(x, p["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
+    return x + mlp_apply(h, p["mlp"], cfg.mlp_kind)
 
 
 def apply_layer_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
                      want_cache: bool = False, cache_len: int = 0):
     """Prefill application. Returns (x, cache)."""
     h = apply_norm(x, p["norm_in"], cfg.norm_kind, cfg.norm_eps)
-    a, kv = attention_full(h, p["attn"], cfg, spec, positions,
-                           want_cache=want_cache, cache_len=cache_len)
-    x = x + a
-    h = apply_norm(x, p["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
-    x = x + mlp_apply(h, p["mlp"], cfg.mlp_kind)
-    return x, ({"self": kv} if want_cache else {})
+    if spec.kind == "attn":
+        a, c = attention_full(h, p["attn"], cfg, spec, positions,
+                              want_cache=want_cache, cache_len=cache_len)
+        key = "self"
+    else:
+        a, c = ssm_forward(h, p["ssm"], cfg, want_state=want_cache)
+        key = "ssm"
+    x = _mlp_residual(x + a, p, cfg)
+    return x, ({key: c} if want_cache else {})
 
 
 def apply_layer_decode(x, p, cfg: ModelConfig, spec: LayerSpec,
                        cache: Params, pos):
-    """One-token decode. Returns (x, cache) — the cache updated in place."""
+    """One-token decode. Returns x; ``cache`` is updated in place (each
+    leaf keeps its dtype)."""
     h = apply_norm(x, p["norm_in"], cfg.norm_kind, cfg.norm_eps)
-    a, kv = attention_decode(h, p["attn"], cfg, spec, cache["self"], pos)
-    x = x + a
-    h = apply_norm(x, p["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
-    x = x + mlp_apply(h, p["mlp"], cfg.mlp_kind)
-    return x, {"self": kv}
+    if spec.kind == "attn":
+        a, _ = attention_decode(h, p["attn"], cfg, spec, cache["self"], pos)
+    else:
+        a, new = ssm_decode_step(h, p["ssm"], cfg, cache["ssm"])
+        for k, v in new.items():
+            cache["ssm"][k].copy_(v)
+    return _mlp_residual(x + a, p, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +155,7 @@ def apply_stack_decode(x, stack, cfg: ModelConfig, cache: Params, pos):
     pattern = cfg.block_pattern()
     for b in range(cfg.num_blocks):
         for i, spec in enumerate(pattern):
-            x, _ = apply_layer_decode(
+            x = apply_layer_decode(
                 x, tree_index(stack[f"pos{i}"], b), cfg, spec,
                 tree_index(cache[f"pos{i}"], b), pos)
     return x, cache
@@ -148,9 +166,12 @@ def empty_stack_cache(cfg: ModelConfig, batch: int, cache_len: int,
     out = {}
     nb = cfg.num_blocks
     for i, spec in enumerate(cfg.block_pattern()):
-        _check_dense(spec)
-        c = empty_cache(cfg, spec, batch, cache_len, dtype=kv_dtype,
-                        device=device)
-        out[f"pos{i}"] = {"self": {
+        _check_ported(spec)
+        if spec.kind == "attn":
+            key, c = "self", empty_cache(cfg, spec, batch, cache_len,
+                                         dtype=kv_dtype, device=device)
+        else:
+            key, c = "ssm", empty_ssm_state(cfg, batch, device=device)
+        out[f"pos{i}"] = {key: {
             k: v[None].repeat((nb,) + (1,) * v.dim()) for k, v in c.items()}}
     return out

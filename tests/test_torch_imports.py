@@ -51,6 +51,7 @@ def test_guard_catches_forbidden_imports(tmp_path):
 @pytest.mark.parametrize("kernel,source", [
     ("paged_attention", "paged_attention.cu"),
     ("scope_copy", "scope_copy.cu"),
+    ("ssd", "ssd.cu"),
 ])
 def test_every_on_path_kernel_has_a_cuda_source(kernel, source):
     cu = PORT / "csrc" / source
