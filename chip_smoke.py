@@ -32,6 +32,20 @@ before the result line is printed:
     teacher-forced decode steps against prefills of the same prefixes;
 11. mamba2 times: the SSD kernel, a batched 8 x 512 prefill, and a B=8
     decode step under ``torch.profiler``;
+12. the flash-prefill kernel against its plain version at yi-9b's prefill
+    shape and gemma3-12b's (head_dim 256, window 0 and 1024), bf16 and
+    f32, with a softcap at one shape;
+13. gemma3-12b at full width and depth (48 layers: 40 local with a
+    1024-token window, 8 global), random weights from a seed: 4 requests
+    of 1,100-3,100 tokens prefilled alone through ``Model.prefill`` (the
+    flash-prefill kernel's launch count is read around these prefills),
+    caches joined on the batch axis, 16 greedy ``Model.decode_step``s;
+14. end-to-end check of the flash-prefill kernel: an fp32 copy of
+    gemma3's first 12 layers, teacher-forced decode steps through the
+    ring caches against kernel prefills of the same prefixes;
+15. gemma3 times: the flash-prefill kernel at yi-9b's and gemma3's
+    global and local layer shapes beside its plain version and SDPA, and
+    a B=1, 4,096-token prefill under ``torch.profiler``;
 
 then a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -72,6 +86,15 @@ TOL_TF = 1e-3          # fp32 decode vs prefill (tests/test_arch_smoke.py:113)
 TOL_TF_MAX = 1e-2      # ... where 48 layers need more: printed, never beyond this
 # mamba2-1.3b's SSD at the batched prefill of 8 x 512 tokens
 SSD_SHAPE = dict(B=8, S=512, H=64, P=64, N=128, Q=128)
+# flash_prefill alone, as paged_attention: both sides accumulate in fp32
+TOL_K3 = {torch.float32: TOL_F32, torch.bfloat16: TOL_K1_BF16}
+# (B, S, Hq, Hkv, D, window, softcap): yi-9b's prefill of its longest served
+# sequence, gemma3's global and local layers at a ragged S
+K3_CASES = [(1, 471, 32, 4, 128, 0, 0.0), (1, 471, 32, 4, 128, 0, 30.0),
+            (2, 2000, 16, 8, 256, 0, 0.0), (2, 2000, 16, 8, 256, 1024, 0.0)]
+# timed at B=1, bf16: yi-9b's prefill, gemma3's global and local layers at 4,096
+K3_TIMED = {"yi9b_S471": (1, 471, 32, 4, 128, 0), "gemma3_global_S4096": (1, 4096, 16, 8, 256, 0),
+            "gemma3_local_S4096": (1, 4096, 16, 8, 256, 1024)}
 
 
 def log(msg: str) -> None:
@@ -239,6 +262,7 @@ def make_prompts(rng, n, vocab):
 
 
 def phase_serve(cfg, model, prompts, extra, max_new):
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.serving import PoolConfig, ServeEngine
 
@@ -247,7 +271,7 @@ def phase_serve(cfg, model, prompts, extra, max_new):
                                              max_pages_per_seq=64), max_active=8,
                       device=dev)
     free0 = eng.pool.heap.free_pages()
-    paged_attention.launches = 0
+    paged_attention.launches = flash_prefill_cuda.launches = 0
     sync(dev)
     t0 = time.perf_counter()
     gens = [eng.generate_tokens(p, max_new) for p in prompts]
@@ -269,12 +293,17 @@ def phase_serve(cfg, model, prompts, extra, max_new):
     rids = [eng.submit(p, max_new) for p in extra]
     eng.run_until_drained(timeout=600)
     launches = paged_attention.launches
+    k3_launches = flash_prefill_cuda.launches
     results = [eng.result(r) for r in rids]
 
     L = cfg.num_layers
     if launches != L * eng.decode_steps:
         fail(f"paged_attention launched {launches} times, expected "
              f"{L} x {eng.decode_steps} decode steps")
+    n_prefills = len(prompts) + len(extra)
+    if k3_launches != L * n_prefills:
+        fail(f"flash_prefill launched {k3_launches} times, expected "
+             f"{L} x {n_prefills} prefills")
     if eng.oob_events:
         fail(f"{eng.oob_events} sandbox violations on the main path")
     if eng.pool.heap.free_pages() != free0 or eng.pool.stats()["sealed_pages"]:
@@ -284,20 +313,23 @@ def phase_serve(cfg, model, prompts, extra, max_new):
     step_ms = 1e3 * t_decode / stream_steps
     info = {
         "decode_steps": eng.decode_steps, "stream_steps": stream_steps,
-        "launches": launches, "peak_batch": eng.peak_stream_batch,
+        "launches": launches, "flash_prefill_launches": k3_launches,
+        "peak_batch": eng.peak_stream_batch,
         "admit_8_prefills_s": t_admit, "decode_step_ms_b8": step_ms,
         "decode_tokens_per_s_b8": len(prompts) * stream_steps / t_decode,
     }
     log(f"phase 3 main path: {len(prompts)} streams + {len(extra)} requests, "
         f"{eng.decode_steps} decode steps, paged_attention launches {launches} "
-        f"= {L} x {eng.decode_steps}, oob 0, all pages and seals returned; "
+        f"= {L} x {eng.decode_steps}, flash_prefill launches {k3_launches} = {L} x "
+        f"{n_prefills} prefills, oob 0, all pages and seals returned; "
         f"decode step {step_ms:.2f} ms at B=8")
     return eng, streams + results, info
 
 
-def profile_steps(step, dev, steps=4):
+def profile_steps(step, dev, steps=4, watch=""):
     """``steps`` calls of ``step`` timed on the host clock, then the same
-    under torch.profiler: device time by kernel against the host clock.
+    under torch.profiler: device time by kernel against the host clock,
+    and the device time of the kernels whose name holds ``watch``.
     Only device events are summed: an operator's own entry also carries
     the time of the kernels it launched, which would count them twice."""
     from torch.autograd import DeviceType
@@ -324,6 +356,8 @@ def profile_steps(step, dev, steps=4):
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "launches_per_step": sum(c for _, _, c in kernels),
+            "watch_ms_per_step": (sum(t for k, t, _ in kernels if watch in k)
+                                  if watch else None),
             "top_kernels_ms_per_step": [(k[:80], t) for k, t, _ in top]}
 
 
@@ -763,6 +797,239 @@ def phase_mamba_times(model, ssd_args, cache, tok, pos, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 12-15: gemma3-12b prefill (flash-prefill kernel) and decode
+# ---------------------------------------------------------------------------
+def k3_inputs(gen, B, S, Hq, Hkv, D, dtype):
+    return [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+
+
+def phase_flash_kernel(gen, card):
+    """K3 against its plain version at the main paths' shapes."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    errs = {}
+    for B, S, Hq, Hkv, D, window, softcap in K3_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = k3_inputs(gen, B, S, Hq, Hkv, D, dtype)
+            got = flash_prefill_cuda(q, k, v, window=window, softcap=softcap)
+            torch.cuda.synchronize()
+            want = flash_prefill_ref(q, k, v, window=window, softcap=softcap)
+            name = f"B{B} S{S} {Hq}/{Hkv} D{D} w{window} cap{softcap:g} {str(dtype)[6:]}"
+            if not torch.isfinite(got.float()).all():
+                fail(f"flash_prefill produced a non-finite value ({name})")
+            err = (got.float() - want.float()).abs().max().item()
+            if not torch.allclose(got.float(), want.float(), **TOL_K3[dtype]):
+                fail(f"flash_prefill disagrees with its plain version ({name}): "
+                     f"max |err| {err:.3e}")
+            errs[name] = err
+    log(f"phase 12 flash_prefill vs plain on {card} (bf16 at atol "
+        f"{TOL_K1_BF16['atol']:g}/rtol {TOL_K1_BF16['rtol']:g}, f32 at "
+        f"{TOL_F32['atol']:g}/{TOL_F32['rtol']:g}): max |err| "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }")
+    return {"max_abs_err": max(errs.values()), "per_case": errs}
+
+
+def ragged_prompts(rng, n, vocab, lo=1100, hi=3100, multiple=64):
+    """``n`` prompts of lo..hi tokens, none a multiple of ``multiple``."""
+    lens = []
+    while len(lens) < n:
+        s = int(rng.integers(lo, hi + 1))
+        if s % multiple:
+            lens.append(s)
+    return [rng.integers(1, vocab, size=s).tolist() for s in lens]
+
+
+def phase_gemma_serve(cfg, model, prompts, max_new, card):
+    """Each request prefilled alone (B=1) through the flash-prefill
+    kernel, the caches joined on the batch axis, then greedy decode."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+
+    dev = model.device
+    cache_len = max(len(p) for p in prompts) + max_new
+    window = cfg.sliding_window
+    flash_prefill_cuda.launches = 0
+    caches, first, prefill_ms = [], [], []
+    for prompt in prompts:
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(toks, cache_len=cache_len)
+        sync(dev)
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        if not torch.isfinite(logits).all():
+            fail("gemma3 prefill produced non-finite logits")
+        first.append(int(logits[0].argmax()))
+        caches.append(cache)
+    launches = flash_prefill_cuda.launches
+    if launches != cfg.num_layers * len(prompts):
+        fail(f"flash_prefill launched {launches} times, expected "
+             f"{cfg.num_layers} x {len(prompts)} prefill calls")
+    for prompt, cache in zip(prompts, caches):
+        S = len(prompt)
+        for i, spec in enumerate(cfg.block_pattern()):
+            cpos = cache[f"pos{i}"]["self"]["pos"]          # (L, 1, size)
+            want = (torch.arange(S - window, S, device=dev) if spec.sliding_window
+                    else torch.arange(S, device=dev))
+            held = cpos.sort(-1).values[..., -len(want):]
+            if spec.sliding_window and cpos.shape[-1] != window:
+                fail(f"layer position {i}: ring of {cpos.shape[-1]} slots, not {window}")
+            if not torch.equal(held, want.to(cpos.dtype).expand_as(held)):
+                fail(f"layer position {i} of a {S}-token prefill does not hold "
+                     f"positions {int(want[0])}..{S - 1}")
+
+    cache = tree_cat(caches, dim=1)       # leaves are (L, B, ...): batch is axis 1
+    tok = torch.tensor(first, dtype=torch.int32, device=dev)
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    alone = torch.cat([model.decode_step(tok[i:i + 1], pos[i:i + 1], caches[i])[0]
+                       for i in range(len(prompts))])
+    del caches
+    streams = [tok]
+    sync(dev)
+    t0 = time.perf_counter()
+    for k in range(max_new):
+        logits, cache = model.decode_step(streams[-1], pos + k, cache)
+        if not torch.isfinite(logits).all():
+            fail(f"gemma3 decode step {k} produced non-finite logits")
+        if k == 0:
+            batch_err = (logits - alone).abs().max().item()
+            batch_ties = first_step_ties(logits, alone)
+        streams.append(logits.argmax(-1).to(torch.int32))
+    sync(dev)
+    t_decode = time.perf_counter() - t0
+    step_ms = 1e3 * t_decode / max_new
+    B = len(prompts)
+    info = {"prompt_lens": [len(p) for p in prompts], "cache_len": cache_len,
+            "prefill_ms": prefill_ms, "launches": launches,
+            "batched_vs_alone_max_abs_err": batch_err,
+            "batched_vs_alone_near_ties": batch_ties,
+            f"decode_step_ms_b{B}": step_ms,
+            f"decode_tokens_per_s_b{B}": B * max_new / t_decode}
+    log(f"phase 13 gemma3 main path on {card}: {B} prefills alone (lengths "
+        f"{info['prompt_lens']}, cache_len {cache_len}; every local ring of {window} "
+        f"slots wrapped and holds the last {window} positions), flash_prefill launches "
+        f"{launches} = {cfg.num_layers} x {B}, prefill ms "
+        f"{[round(t, 1) for t in prefill_ms]}; caches joined, {max_new} greedy steps at "
+        f"B={B}: logits finite, first step vs each stream alone: tokens equal but at "
+        f"near-ties {batch_ties}, max |Δlogit| {batch_err:.3e}; decode step {step_ms:.2f} "
+        f"ms, {info[f'decode_tokens_per_s_b{B}']:.1f} tokens/s")
+    return info
+
+
+def phase_gemma_teacher_forced(model, cfg, rng, card, blocks=2, K=1200, steps=8):
+    """An fp32 copy of gemma3's first ``blocks`` super-blocks (local and
+    global layers): each decode step (``_attend`` over the ring and dense
+    caches) against a prefill of the prefix plus that token through the
+    flash-prefill kernel in fp32, past the 1024-token window."""
+    from dataclasses import replace
+
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.models import build_model
+
+    dev = model.device
+    cfg_s = replace(cfg, num_layers=blocks * len(cfg.block_pattern()))
+    m32 = build_model(cfg_s).init(torch.Generator(dev).manual_seed(1), device=dev)
+    with torch.no_grad():
+        for name, p in m32.named_parameters():
+            src = model.get_parameter(name)
+            p.copy_(src[:blocks] if name.startswith("stack.") else src)
+    m32 = m32.float()
+    gb = sum(p.numel() * p.element_size() for p in m32.parameters()) / 1e9
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(2, K + steps)).astype(
+        np.int32)).to(dev)
+    n0 = flash_prefill_cuda.launches
+    logits, cache = m32.prefill(toks[:, :K], cache_len=K + steps)
+    errs = []
+    for t in range(K, K + steps):
+        ref, _ = m32.prefill(toks[:, : t + 1])
+        logits, cache = m32.decode_step(toks[:, t], torch.full((2,), t, dtype=torch.int32,
+                                                               device=dev), cache)
+        errs.append((logits - ref).abs().max().item())
+        if not torch.equal(logits.argmax(-1), ref.argmax(-1)):
+            fail(f"fp32 decode step {t} picks another token than the prefill of its prefix")
+    if flash_prefill_cuda.launches - n0 != cfg_s.num_layers * (steps + 1):
+        fail("the fp32 prefills did not all run the flash-prefill kernel")
+    err = max(errs)
+    if err > TOL_TF_MAX:
+        fail(f"fp32 decode vs prefill max |err| {err:.3e} > {TOL_TF_MAX:g}")
+    note = ("" if err <= TOL_TF else
+            f"; above the reference's {TOL_TF:g} (tests/test_arch_smoke.py:113)")
+    del m32, cache
+    torch.cuda.empty_cache()
+    log(f"phase 14 fp32 teacher forcing on {card}: first {cfg_s.num_layers} layers "
+        f"({gb:.1f} GB in fp32), B=2, prefill {K} tokens (past the {cfg.sliding_window} "
+        f"window), {steps} decode steps each against a kernel prefill of its prefix: max "
+        f"|err| {err:.3e} (atol {TOL_TF:g}), argmax equal{note}")
+    return {"layers": cfg_s.num_layers, "max_abs_err": err, "per_step": errs}
+
+
+def k3_pairs(S, window):
+    """(query, key) pairs the causal window admits at positions 0..S-1."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def phase_gemma_times(model, gen, card):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+
+    timer = Timer()
+    out = {}
+    for name, (B, S, Hq, Hkv, D, window) in K3_TIMED.items():
+        q, k, v = k3_inputs(gen, B, S, Hq, Hkv, D, torch.bfloat16)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())     # q, k, v read, out written
+        flops = 4 * D * Hq * B * k3_pairs(S, window)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        if window:
+            i = torch.arange(S, device="cuda")
+            band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+            sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band,
+                                                          enable_gqa=True)
+        else:
+            sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                          enable_gqa=True)
+        plain = flash_prefill_ref(q, k, v, window=window).float()
+        lib_err = (sdpa().transpose(1, 2).float() - plain).abs().max().item()
+        del plain
+        out[name] = {
+            "ms": timer.ms(lambda: flash_prefill_cuda(q, k, v, window=window)),
+            "plain_ms": timer.ms(lambda: flash_prefill_ref(q, k, v, window=window)),
+            "library_ms": timer.ms(sdpa),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "pairs": B * k3_pairs(S, window), "library_max_abs_err_vs_plain": lib_err,
+        }
+        out[name]["TFLOP_per_s"] = flops / out[name]["ms"] / 1e9
+    torch.cuda.empty_cache()
+
+    toks = torch.randint(1, model.cfg.vocab_size, (1, 4096), dtype=torch.int32,
+                         device=model.device)
+    prefill_ms = timer.ms(lambda: model.prefill(toks), samples=5, warmup=1)
+    prof = profile_steps(lambda: model.prefill(toks), model.device, steps=2,
+                         watch="flash_prefill")
+    info = {"flash_prefill": out, "prefill_1x4096_ms": prefill_ms,
+            "prefill_1x4096_tokens_per_s": 4096 / prefill_ms * 1e3,
+            "prefill_1x4096_profile": prof}
+    share = (prof["watch_ms_per_step"] / prof["device_busy_ms_per_step"]
+             if prof["device_busy_ms_per_step"] else None)
+    info["flash_prefill_share_of_busy"] = share
+    log(f"phase 15 gemma3 times on {card} (ms, median of {SAMPLES}, L2 flushed): "
+        + "; ".join(f"flash_prefill {n} {d['ms']:.4f} ({d['TFLOP_per_s']:.1f} TFLOP/s), plain "
+                    f"{d['plain_ms']:.4f}, SDPA {d['library_ms']:.4f} (max |Δ| vs plain "
+                    f"{d['library_max_abs_err_vs_plain']:.1e}), bound {d['bound_ms']:.4f} "
+                    f"({d['bound_by']})" for n, d in out.items())
+        + f"; prefill 1x4096 {prefill_ms:.2f} ms (median of 5, "
+        f"{info['prefill_1x4096_tokens_per_s']:.0f} tokens/s; 2 more, then 2 under the "
+        f"profiler: {profile_line(prof)}; flash_prefill {prof['watch_ms_per_step']:.2f} ms "
+        f"per prefill, share of busy {share if share is None else round(share, 3)})")
+    return info
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -826,6 +1093,24 @@ def main() -> int:
     m_tf = phase_teacher_forced(mamba, mcfg, rng, card)
     m_times = phase_mamba_times(mamba, ssd.pop("args"), cache, tok, pos, card)
     times["ssd_intra_chunk"] = m_times["ssd_intra_chunk"]
+    del mamba, cache
+    torch.cuda.empty_cache()
+
+    gcfg = get_config("gemma3_12b")
+    flash = phase_flash_kernel(gen, card)
+    errs["flash_prefill"] = flash.pop("max_abs_err")
+    t0 = time.perf_counter()
+    gemma = build_model(gcfg).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in gemma.parameters())
+    log(f"model: {gcfg.name} {gcfg.num_layers} layers, {n_params / 1e9:.2f} B params "
+        f"(analytic {gcfg.param_count() / 1e9:.2f} B), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    g_serve = phase_gemma_serve(gcfg, gemma, ragged_prompts(rng, 4, gcfg.vocab_size),
+                                MAX_NEW, card)
+    g_tf = phase_gemma_teacher_forced(gemma, gcfg, rng, card)
+    g_times = phase_gemma_times(gemma, gen, card)
+    times["flash_prefill"] = g_times["flash_prefill"]["gemma3_global_S4096"]
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -839,6 +1124,8 @@ def main() -> int:
                           transfer["launches"]["scatter_pages"]),
         "ssd_intra_chunk": ("src/repro_torch/csrc/ssd.cu",
                             "src/repro/kernels/ssd/kernel.py:77", m_serve["launches"]),
+        "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
+                          "src/repro/kernels/flash_prefill/kernel.py:84", g_serve["launches"]),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -851,7 +1138,8 @@ def main() -> int:
     result = {"card": card, "build_s": t_build, "serve": serve, "dense": dense,
               "profile": prof, "transfer": transfer, "times": times,
               "ssd_kernel": ssd, "mamba_serve": m_serve, "mamba_teacher_forced": m_tf,
-              "mamba_times": m_times, "kernels": kernels}
+              "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,
+              "gemma_teacher_forced": g_tf, "gemma_times": g_times, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -12,9 +12,10 @@ from typing import Dict, List
 
 from ..models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["yi_9b", "mamba2_1p3b"]
+ARCH_IDS: List[str] = ["yi_9b", "mamba2_1p3b", "gemma3_12b"]
 
-ALIASES: Dict[str, str] = {"yi-9b": "yi_9b", "mamba2-1.3b": "mamba2_1p3b"}
+ALIASES: Dict[str, str] = {"yi-9b": "yi_9b", "mamba2-1.3b": "mamba2_1p3b",
+                           "gemma3-12b": "gemma3_12b"}
 
 
 def _module(arch: str):

@@ -1,5 +1,5 @@
-"""Shared building blocks: init, RMSNorm, rotary embeddings, SwiGLU,
-embedding and unembedding.
+"""Shared building blocks: init, RMSNorm (plain and gemma's ``1 + w``),
+rotary embeddings, SwiGLU, embedding and unembedding.
 
 Plain functions over explicit parameter trees (nested dicts, or the
 ``ModuleDict``/``ParameterDict`` nesting of ``Model`` — both index the
@@ -32,28 +32,35 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
     return w.to(device=device, dtype=dtype)
 
 
+NORM_KINDS = ("rmsnorm", "rmsnorm_gemma")
+
+
 def init_norm(d: int, kind: str, device=None) -> Params:
-    if kind != "rmsnorm":
+    """RMSNorm scales: ones, or zeros for gemma's ``(1 + w)`` form."""
+    if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported")
-    return {"scale": torch.ones((d,), dtype=torch.bfloat16, device=device)}
+    fill = torch.zeros if kind == "rmsnorm_gemma" else torch.ones
+    return {"scale": fill((d,), dtype=torch.bfloat16, device=device)}
 
 
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
-def rmsnorm(x: torch.Tensor, w, eps: float = 1e-6) -> torch.Tensor:
+def rmsnorm(x: torch.Tensor, w, eps: float = 1e-6,
+            gemma: bool = False) -> torch.Tensor:
+    """RMSNorm over the last axis, scaled by ``w`` (``1 + w`` for gemma)."""
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
     if w is not None:
-        x = x * w.float()
+        x = x * ((1.0 + w.float()) if gemma else w.float())
     return x.to(dt)
 
 
 def apply_norm(x: torch.Tensor, params, kind: str, eps: float):
-    if kind != "rmsnorm":
+    if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported")
-    return rmsnorm(x, params["scale"], eps)
+    return rmsnorm(x, params["scale"], eps, gemma=kind == "rmsnorm_gemma")
 
 
 # ---------------------------------------------------------------------------

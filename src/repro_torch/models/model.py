@@ -17,7 +17,7 @@ from torch import nn
 from ..convert import params_from_numpy
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
-from .layers import apply_norm, embed_tokens, init_embed, init_norm, unembed
+from .layers import NORM_KINDS, apply_norm, embed_tokens, init_embed, init_norm, unembed
 from .transformer import apply_stack_decode, apply_stack_full, empty_stack_cache, init_stack
 
 Params = Dict[str, Any]
@@ -36,17 +36,16 @@ def _to_module(tree: Mapping[str, Any]) -> nn.Module:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for any architecture feature outside the ported families:
-    dense (RoPE, SwiGLU) and Mamba-2 SSM (no positions)."""
+    dense (RoPE, SwiGLU; optionally gemma's RMSNorm, qk-norm and sliding
+    windows) and Mamba-2 SSM (no positions)."""
     unported = [
         name for name, bad in (
             ("family", cfg.family not in ("dense", "ssm")),
-            ("norm_kind", cfg.norm_kind != "rmsnorm"),
+            ("norm_kind", cfg.norm_kind not in NORM_KINDS),
             ("rope_kind", cfg.rope_kind != ("rope" if cfg.family == "dense" else "none")),
             ("mlp_kind", cfg.mlp_kind != "swiglu"),
-            ("qk_norm", cfg.qk_norm),
             ("attn_bias", cfg.attn_bias),
             ("attn_logit_softcap", bool(cfg.attn_logit_softcap)),
-            ("sliding_window", bool(cfg.sliding_window)),
             ("encoder_layers", bool(cfg.encoder_layers)),
             ("num_experts", bool(cfg.num_experts)),
         ) if bad]

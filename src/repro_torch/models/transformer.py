@@ -1,10 +1,12 @@
-"""Decoder stack: dense global-attention layers and Mamba-2 SSM layers.
+"""Decoder stack: dense self-attention layers (global or sliding-window,
+as gemma3's 5:1 local:global super-block) and Mamba-2 SSM layers.
 
 Parameters for each super-block position are stacked over blocks with a
 leading layer axis (``stack.pos0.attn.wq`` is ``(L, d, H, Dh)``), as in
 the reference; the reference's ``lax.scan`` over that axis becomes a
 Python loop over layer slices (views, no copies). A layer has an MLP
-only when ``d_ff > 0`` (an SSM layer of mamba2 has none).
+only when ``d_ff > 0`` (an SSM layer of mamba2 has none). A windowed
+position's cache leaves are rings of ``min(window, cache_len)`` slots.
 """
 
 from __future__ import annotations
@@ -32,11 +34,11 @@ def tree_index(tree, i: int):
 
 
 def _check_ported(spec: LayerSpec) -> None:
-    if spec.kind not in ("attn", "ssm") or spec.moe or spec.cross_attn \
-            or spec.sliding_window:
+    if spec.kind not in ("attn", "ssm") or spec.moe or spec.cross_attn:
         raise NotImplementedError(
-            f"layer {spec} is not ported: the port serves global-attention "
-            "and SSM layers without MoE or cross-attention")
+            f"layer {spec} is not ported: the port serves self-attention "
+            "(global or sliding-window) and SSM layers without MoE or "
+            "cross-attention")
 
 
 # ---------------------------------------------------------------------------

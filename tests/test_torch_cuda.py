@@ -1,5 +1,6 @@
-"""The port's CUDA kernels, its paged decode and its Mamba-2 prefill on the
-card, held against the port's plain PyTorch versions on the same inputs. Needs a CUDA card
+"""The port's CUDA kernels, its paged decode, its Mamba-2 prefill and its
+gemma3 prefill and decode on the card, held against the port's plain
+PyTorch versions on the same inputs. Needs a CUDA card
 and nvcc; skips without one. Imports nothing of jax, so it also runs on a
 machine with the card and no jax:
 
@@ -15,6 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref  # noqa: E402
+from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
 from repro_torch.kernels.scope_copy import gather_pages, scatter_pages  # noqa: E402
 from repro_torch.kernels.scope_copy.ref import gather_pages_ref, scatter_pages_ref  # noqa: E402
@@ -177,13 +180,14 @@ def test_engine_on_card_serves_through_the_kernel(dev):
                                              max_pages_per_seq=8), max_active=4,
                       device=dev)
     free0 = eng.pool.heap.free_pages()
-    n0 = paged_attention.launches
+    n0, f0 = paged_attention.launches, flash_prefill_cuda.launches
     gens = [eng.generate_tokens(list(range(1, 4 + 3 * i)), 6) for i in range(4)]
     outs = [list(g) for g in gens]
     rid = eng.submit([7, 8, 9], 5)
     eng.run_until_drained(timeout=120)
     assert [len(o) for o in outs] == [6] * 4 and len(eng.result(rid)) == 5
     assert paged_attention.launches - n0 == cfg.num_layers * eng.decode_steps
+    assert flash_prefill_cuda.launches - f0 == cfg.num_layers * 5   # one per prefill
     assert eng.oob_events == 0
     assert eng.pool.heap.free_pages() == free0
     assert eng.pool.stats()["sealed_pages"] == 0
@@ -274,3 +278,88 @@ def test_mamba2_prefill_on_card_runs_the_kernel_and_matches_cpu(dev):
     torch.testing.assert_close(ld.cpu(), lc, **TOL[torch.bfloat16])
     torch.testing.assert_close(cd["pos0"]["ssm"]["ssd"].cpu(), cc["pos0"]["ssm"]["ssd"],
                                **TOL[torch.bfloat16])
+
+
+# -- K3: the flash-prefill kernel --------------------------------------------
+def _k3_inputs(B, S, Hq, Hkv, D, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype)
+            for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])     # 256 in f32: 216 KB of shared memory
+@pytest.mark.parametrize("heads", [(4, 2), (8, 8), (4, 1), (32, 4), (16, 8)])
+def test_flash_prefill_kernel_matches_plain(dev, dtype, D, heads):
+    """S 64/100/256/1000 (ragged tiles at 100 and 1000), window 0/32,
+    softcap 0/30: the kernel against its plain version on the card, at
+    K1's kernel tolerance (both sides accumulate in fp32)."""
+    Hq, Hkv = heads
+    for S in (64, 100, 256, 1000):
+        q, k, v = [t.to(dev) for t in _k3_inputs(2 if S < 1000 else 1, S, Hq, Hkv, D,
+                                                   dtype, seed=S + D)]
+        for window in (0, 32):
+            for softcap in (0.0, 30.0):
+                n0 = flash_prefill_cuda.launches
+                got = flash_prefill(q, k, v, window=window, softcap=softcap)
+                torch.cuda.synchronize()
+                assert flash_prefill_cuda.launches == n0 + 1
+                assert got.dtype == dtype and torch.isfinite(got.float()).all()
+                want = flash_prefill_ref(q, k, v, window=window, softcap=softcap)
+                torch.testing.assert_close(got.float(), want.float(), **K1_TOL[dtype],
+                                           msg=lambda m: f"S={S} window={window} "
+                                                         f"softcap={softcap}: {m}")
+
+
+@pytest.mark.parametrize("S,window", [(1, 0), (1, 5), (65, 1), (130, 64), (200, 65)])
+def test_flash_prefill_kernel_edge_windows(dev, S, window):
+    """A single token, a window of one (each row sees only itself), and
+    windows at the tile size, where whole key tiles fall below the window
+    for some rows of a query tile and not for others."""
+    q, k, v = [t.to(dev) for t in _k3_inputs(2, S, 4, 2, 64, torch.float32, seed=S)]
+    got = flash_prefill_cuda(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, flash_prefill_ref(q, k, v, window=window),
+                               **TOL[torch.float32])
+    if window == 1:
+        torch.testing.assert_close(got, v.repeat_interleave(2, dim=2), **TOL[torch.float32])
+
+
+def test_flash_prefill_kernel_rejects_what_it_does_not_take(dev):
+    q, k, v = [t.to(dev) for t in _k3_inputs(1, 70, 4, 2, 64, torch.float32)]
+    n0 = flash_prefill_cuda.launches
+    with pytest.raises(ValueError, match="dtype"):
+        flash_prefill(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill(*[t[..., :48] for t in (q, k, v)])
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_prefill(q[:, :, :3], k, v)
+    with pytest.raises(ValueError, match="share a dtype"):
+        flash_prefill(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="window"):
+        flash_prefill(q, k, v, window=-1)
+    assert flash_prefill_cuda.launches == n0
+
+
+def test_gemma3_prefill_and_decode_on_card_match_cpu(dev):
+    """gemma3's smoke shape with the kernel's smallest head_dim (64):
+    5 local layers (window 8) and 1 global. Prefill 20 tokens (past the
+    window) on the card through the kernel, then 6 decode steps through
+    the rings, against the same model on the CPU."""
+    cfg = replace(get_smoke_config("gemma3_12b"), head_dim=64)
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, size=(2, 26)).astype(np.int32))
+    lc, cc = model.prefill(toks[:, :20], cache_len=26)
+    model_d = copy.deepcopy(model).to(dev)
+    n0 = flash_prefill_cuda.launches
+    ld, cd = model_d.prefill(toks[:, :20].to(dev), cache_len=26)
+    assert flash_prefill_cuda.launches == n0 + cfg.num_layers
+    torch.testing.assert_close(ld.cpu(), lc, **TOL[torch.bfloat16])
+    for t in range(20, 26):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        lc, cc = model.decode_step(toks[:, t], pos, cc)
+        ld, cd = model_d.decode_step(toks[:, t].to(dev), pos.to(dev), cd)
+        torch.testing.assert_close(ld.cpu(), lc, **TOL[torch.bfloat16])
+    for i in range(cfg.num_layers):
+        assert torch.equal(cd[f"pos{i}"]["self"]["pos"].cpu(), cc[f"pos{i}"]["self"]["pos"])

@@ -52,6 +52,7 @@ def test_guard_catches_forbidden_imports(tmp_path):
     ("paged_attention", "paged_attention.cu"),
     ("scope_copy", "scope_copy.cu"),
     ("ssd", "ssd.cu"),
+    ("flash_prefill", "flash_prefill.cu"),
 ])
 def test_every_on_path_kernel_has_a_cuda_source(kernel, source):
     cu = PORT / "csrc" / source
