@@ -7,7 +7,9 @@ Phases, one printed line each; any failure raises and exits non-zero
 before the result line is printed:
 
 1. environment: the card's name and power limit; build the CUDA kernels
-   from ``src/repro_torch/csrc`` (timed as set-up);
+   from ``src/repro_torch/csrc`` (timed as set-up) and read ptxas's
+   register and spill report, which must cover the three bf16
+   flash-prefill instantiations and show no spill in them;
 2. the paged-attention and page-copy kernels against their plain PyTorch
    versions on the card, at the yi-9b slice's shapes, plus the sandbox
    cases and clamped page ids;
@@ -33,8 +35,9 @@ before the result line is printed:
 11. mamba2 times: the SSD kernel, a batched 8 x 512 prefill, and a B=8
     decode step under ``torch.profiler``;
 12. the flash-prefill kernel against its plain version at yi-9b's prefill
-    shape and gemma3-12b's (head_dim 256, window 0 and 1024), bf16 and
-    f32, with a softcap at one shape;
+    shape and gemma3-12b's (head_dim 256, window 0, 65 and 1024) and at
+    head_dim 64, bf16 (tensor cores) and f32 (CUDA cores), with a softcap
+    at one shape;
 13. gemma3-12b at full width and depth (48 layers: 40 local with a
     1024-token window, 8 global), random weights from a seed: 4 requests
     of 1,100-3,100 tokens prefilled alone through ``Model.prefill`` (the
@@ -60,6 +63,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -89,9 +93,11 @@ SSD_SHAPE = dict(B=8, S=512, H=64, P=64, N=128, Q=128)
 # flash_prefill alone, as paged_attention: both sides accumulate in fp32
 TOL_K3 = {torch.float32: TOL_F32, torch.bfloat16: TOL_K1_BF16}
 # (B, S, Hq, Hkv, D, window, softcap): yi-9b's prefill of its longest served
-# sequence, gemma3's global and local layers at a ragged S
+# sequence, gemma3's global and local layers at a ragged S, the kernel's
+# smallest head_dim, and a window one key wider than a tile at gemma3's heads
 K3_CASES = [(1, 471, 32, 4, 128, 0, 0.0), (1, 471, 32, 4, 128, 0, 30.0),
-            (2, 2000, 16, 8, 256, 0, 0.0), (2, 2000, 16, 8, 256, 1024, 0.0)]
+            (2, 2000, 16, 8, 256, 0, 0.0), (2, 2000, 16, 8, 256, 1024, 0.0),
+            (2, 1000, 8, 2, 64, 0, 0.0), (2, 2000, 16, 8, 256, 65, 0.0)]
 # timed at B=1, bf16: yi-9b's prefill, gemma3's global and local layers at 4,096
 K3_TIMED = {"yi9b_S471": (1, 471, 32, 4, 128, 0), "gemma3_global_S4096": (1, 4096, 16, 8, 256, 0),
             "gemma3_local_S4096": (1, 4096, 16, 8, 256, 1024)}
@@ -1029,6 +1035,36 @@ def phase_gemma_times(model, gen, card):
     return info
 
 
+def _kernel_name(mangled: str) -> str:
+    """'..25flash_prefill_bf16_kernelILi256EE..' → 'flash_prefill_bf16_kernel<256>':
+    the first length-prefixed identifier that ends in ``_kernel``."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        j = i + len(m.group())
+        ident, i = mangled[j:j + int(m.group())], j + int(m.group())
+        if ident.endswith("_kernel"):
+            t = re.match(r"ILi(\d+)E", mangled[i:])
+            return ident + (f"<{t.group(1)}>" if t else "")
+    return mangled
+
+
+def ptxas_report(logs) -> dict:
+    """nvcc's -Xptxas -v output → {kernel<D>: (registers, spill bytes)}."""
+    out, name, spill = {}, None, 0
+    for ln in (ln for log_ in logs for ln in log_.splitlines()):
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            name = _kernel_name(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif m := re.search(r"Used (\d+) registers", ln):
+            out[name] = (int(m.group(1)), spill)
+    return out
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1048,10 +1084,15 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     t_build = time.perf_counter() - t0
-    ptxas = [ln.strip() for out in build.build_log for ln in out.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = ptxas_report(build.build_log)
     log(f"phase 1 environment: {kind}, torch {torch.__version__} (CUDA "
-        f"{torch.version.cuda}), kernels built in {t_build:.1f} s; ptxas: {ptxas}")
+        f"{torch.version.cuda}), kernels built in {t_build:.1f} s; ptxas (registers, "
+        f"spill bytes): {ptxas}")
+    k3_bf16 = [f"flash_prefill_bf16_kernel<{D}>" for D in (64, 128, 256)]
+    if missing := [name for name in k3_bf16 if name not in ptxas]:
+        fail(f"no ptxas report for {missing}: the build left none to check for spills")
+    if spilled := [name for name in k3_bf16 if ptxas[name][1]]:
+        fail(f"the tensor-core flash_prefill kernel spills registers: {spilled}")
 
     cfg = get_config("yi_9b")
     rng = np.random.default_rng(0)
@@ -1135,7 +1176,7 @@ def main() -> int:
         "library_ms": times[name]["library_ms"],
     } for name, (src, tpu, launches) in sources.items()]
 
-    result = {"card": card, "build_s": t_build, "serve": serve, "dense": dense,
+    result = {"card": card, "build_s": t_build, "ptxas": ptxas, "serve": serve, "dense": dense,
               "profile": prof, "transfer": transfer, "times": times,
               "ssd_kernel": ssd, "mamba_serve": m_serve, "mamba_teacher_forced": m_tf,
               "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,

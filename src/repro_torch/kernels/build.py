@@ -5,7 +5,9 @@ one shared library with a plain C interface, loaded with ``ctypes``. The
 build runs at first use, one ``nvcc`` per source started together, and
 lands in ``build/repro_torch_kernels/<hash of the sources>/`` at the root
 of the checkout, so a change to any source rebuilds and an unchanged tree
-reuses the library.
+reuses the library. nvcc's output (ptxas's register and spill report) is
+kept beside the library and read back into ``build_log`` when it is
+reused.
 
 C entry points launch on the stream they are given (the caller passes
 ``torch.cuda.current_stream().cuda_stream``) and return
@@ -27,6 +29,7 @@ from typing import List, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 LIB_NAME = "librepro_torch_kernels.so"
+LOG_NAME = "nvcc.log"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,7 +53,7 @@ ERROR_STRING = "repro_cuda_error_string"
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-build_log: List[str] = []   # nvcc's output (ptxas register/smem report)
+build_log: List[str] = []   # nvcc's output of the build in use (ptxas report)
 
 
 def _sources() -> List[Path]:
@@ -95,8 +98,10 @@ def build() -> Path:
     """Compile the kernels (if the sources changed) and return the
     library's path."""
     out_dir = BUILD_ROOT / _digest()
-    lib = out_dir / LIB_NAME
+    lib, log_path = out_dir / LIB_NAME, out_dir / LOG_NAME
     if lib.exists():
+        if not build_log and log_path.exists():
+            build_log.append(log_path.read_text())
         return lib
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -108,6 +113,7 @@ def build() -> Path:
         tmp_lib = Path(tmp) / LIB_NAME
         _run_all([[nvcc, "-shared", *NVCC_FLAGS[:2], *map(str, objs),
                    "-o", str(tmp_lib)]])
+        log_path.write_text("\n".join(build_log))   # before the library appears
         os.replace(tmp_lib, lib)   # atomic: a concurrent loader sees all or nothing
     return lib
 

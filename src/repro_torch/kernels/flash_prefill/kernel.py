@@ -1,6 +1,8 @@
 """Launch wrapper for the CUDA flash-prefill kernel
 (``csrc/flash_prefill.cu``, which replaces the TPU kernel
 ``src/repro/kernels/flash_prefill/kernel.py::flash_prefill_pallas``).
+bf16 runs on the tensor cores (``wgmma`` with ``cp.async`` K/V
+copies), fp32 on the CUDA cores; both accumulate in fp32.
 
 Checks device, dtype, shape, contiguity and alignment, allocates the
 output, and launches on the current stream. Nothing here runs a plain
@@ -15,7 +17,7 @@ import torch
 from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)   # a thread owns D/16 columns of its rows, in float4s
+HEAD_DIMS = (64, 128, 256)   # the kernel's instantiations
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -43,7 +45,7 @@ def flash_prefill_cuda(q, k, v, window: int = 0, softcap: float = 0.0):
     _require(D in HEAD_DIMS, f"head_dim must be one of {HEAD_DIMS}")
     _require(window >= 0 and softcap >= 0, "window and softcap must be >= 0")
     _require(all(t.data_ptr() % 16 == 0 for t in tensors),
-             "q, k and v must be 16-byte aligned (vector loads)")
+             "q, k and v must be 16-byte aligned (16-byte copies)")
 
     out = torch.empty_like(q)
     lib = build.library()

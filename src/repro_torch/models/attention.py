@@ -153,7 +153,9 @@ def attention_decode(x, p, cfg: ModelConfig, spec: LayerSpec, cache: Params,
 
     Writes this token's K/V into ``cache`` in place (slot ``pos % size``
     in a windowed layer's ring; the returned cache is the same tensors)
-    and attends over the valid slots, within the window.
+    and attends over the valid slots, within the window. ``pos`` must lie
+    inside a global layer's cache; ``apply_stack_decode`` checks that
+    before any layer writes.
     """
     B = x.shape[0]
     q = _project_q(x, p, cfg)

@@ -153,8 +153,21 @@ def _stack_trees(trees: List[Params]) -> Params:
 
 def apply_stack_decode(x, stack, cfg: ModelConfig, cache: Params, pos):
     """One-token decode through every layer; ``cache`` (stacked leaves)
-    is updated in place and returned."""
+    is updated in place and returned.
+
+    A position past the end of a global layer's cache raises
+    ``ValueError`` before any layer writes, when ``pos`` lies on the host;
+    on the card the check would cost a synchronisation, so there the
+    caller sizes the cache (``cache_len``)."""
     pattern = cfg.block_pattern()
+    dense = [cache[f"pos{i}"]["self"]["k"].shape[2] for i, spec in enumerate(pattern)
+             if spec.kind == "attn" and not spec.sliding_window]
+    if dense and pos.device.type == "cpu" and pos.numel():
+        last, size = int(pos.max()), min(dense)
+        if last >= size:
+            raise ValueError(
+                f"decode position {last} is past the end of the dense KV cache "
+                f"({size} slots): prefill with a cache_len above it")
     for b in range(cfg.num_blocks):
         for i, spec in enumerate(pattern):
             x = apply_layer_decode(

@@ -47,8 +47,9 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, pos, block_tab,
                      cfg.d_model)
     page = torch.gather(block_tab, 1, (pos // T)[:, None].long())[:, 0]
     slot = pos % T
-    # a forged page id outside the pool is dropped from the write, as the
-    # reference's scatter drops out-of-range indices (torch would raise)
+    # a forged page id outside [0, P) is dropped from the write (torch would
+    # raise). The reference's scatter drops ids >= P alike but wraps a
+    # negative id to P + id and writes that page; the port does not
     keep = torch.nonzero((page >= 0) & (page < P)).squeeze(1)
     w_page, w_slot = page[keep].long(), slot[keep].long()
     oob_total = torch.zeros((B,), dtype=torch.int32, device=tokens.device)

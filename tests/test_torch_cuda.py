@@ -311,18 +311,26 @@ def test_flash_prefill_kernel_matches_plain(dev, dtype, D, heads):
                                                          f"softcap={softcap}: {m}")
 
 
-@pytest.mark.parametrize("S,window", [(1, 0), (1, 5), (65, 1), (130, 64), (200, 65)])
-def test_flash_prefill_kernel_edge_windows(dev, S, window):
-    """A single token, a window of one (each row sees only itself), and
-    windows at the tile size, where whole key tiles fall below the window
-    for some rows of a query tile and not for others."""
-    q, k, v = [t.to(dev) for t in _k3_inputs(2, S, 4, 2, 64, torch.float32, seed=S)]
-    got = flash_prefill_cuda(q, k, v, window=window)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("S,window,softcap", [
+    (1, 0, 0.0), (1, 5, 0.0), (65, 1, 0.0), (130, 64, 0.0), (200, 65, 0.0), (300, 17, 0.0),
+    (1, 0, 30.0), (37, 0, 30.0), (37, 16, 30.0)])
+def test_flash_prefill_kernel_edge_windows(dev, S, window, softcap, D, dtype):
+    """A single token, a window of one (each row sees only itself), a
+    window narrower than a tile (rows of a tile that see none of its keys
+    keep m = -inf), windows at the tile size, where whole key tiles fall
+    below the window for some rows of a query tile and not for others, and
+    fewer rows than one query tile with a softcap (the key tile is zero
+    past S)."""
+    q, k, v = [t.to(dev) for t in _k3_inputs(2, S, 4, 2, D, dtype, seed=S)]
+    got = flash_prefill_cuda(q, k, v, window=window, softcap=softcap)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, flash_prefill_ref(q, k, v, window=window),
-                               **TOL[torch.float32])
-    if window == 1:
-        torch.testing.assert_close(got, v.repeat_interleave(2, dim=2), **TOL[torch.float32])
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    want = flash_prefill_ref(q, k, v, window=window, softcap=softcap)
+    torch.testing.assert_close(got.float(), want.float(), **K1_TOL[dtype])
+    if window == 1 or S == 1:
+        torch.testing.assert_close(got, v.repeat_interleave(2, dim=2), **K1_TOL[dtype])
 
 
 def test_flash_prefill_kernel_rejects_what_it_does_not_take(dev):

@@ -132,3 +132,32 @@ def test_empty_cache_and_decode_from_it_match_reference(pair):
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **BF16)
     assert ct["pos0"]["self"]["pos"][:, :, :5].tolist() == \
         [[[0, -1, -1, -1, -1], [-1, -1, -1, -1, 4]]] * 2
+
+
+@pytest.mark.parametrize("arch", ["yi_9b", "gemma3_12b"])
+def test_decode_past_the_dense_cache_raises(pair, arch):
+    """Decoding at a position past the end of a global layer's cache: the
+    reference's scatter drops the write and returns finite logits that
+    attend without the current token; the port refuses with a typed error
+    that names the position and the cache size, before any layer writes
+    (gemma3's local layers come first in its pattern, and their rings stay
+    as the prefill left them)."""
+    if arch == "yi_9b":
+        jm, params, tm = pair
+    else:
+        jm = jax_build(jax_smoke(arch))
+        params = jm.init(jax.random.PRNGKey(0))
+        tm = build_model(get_smoke_config(arch)).load_params(
+            jax.tree.map(np.asarray, params), device="cpu")
+    prompt, tok, pos = [[3, 4, 5, 6]], [7], [4]
+    _, cj = jm.prefill(params, {"tokens": jnp.asarray(prompt, jnp.int32)}, cache_len=4)
+    lj, _ = jm.decode_step(params, jnp.asarray(tok, jnp.int32), jnp.asarray(pos, jnp.int32), cj)
+    assert np.isfinite(np.asarray(lj)).all()
+    _, ct = tm.prefill(torch.tensor(prompt, dtype=torch.int32), cache_len=4)
+    before = [(path, leaf.clone()) for path, leaf in _leaves(ct)]
+    with pytest.raises(ValueError, match=r"decode position 4 .*\(4 slots\)"):
+        tm.decode_step(torch.tensor(tok, dtype=torch.int32), torch.tensor(pos, dtype=torch.int32),
+                       ct)
+    after = dict(_leaves(ct))
+    for path, leaf in before:
+        assert torch.equal(after[path], leaf), path

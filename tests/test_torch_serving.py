@@ -145,8 +145,14 @@ def test_transfer_cross_pod_matches_reference(lm, src_pages, dst_pages):
 
 
 # -- one paged decode step ----------------------------------------------------
-@pytest.mark.parametrize("forge", [False, True])
+@pytest.mark.parametrize("forge", [False, True, "negative"])
 def test_paged_decode_step_matches_reference(lm, forge):
+    """One paged decode step on both packages. ``True`` forges another
+    connection's page and a wild page id; ``"negative"`` forges page id -1
+    where row 2 writes its new K/V. Both sides mask and count the read of
+    page -1, and the port drops the write. The reference's scatter wraps a
+    negative id, so it writes row 2's K/V into page P - 1: a known
+    divergence, asserted here so that a change on either side shows."""
     jcfg, _, params, tcfg, tm = lm
     rng = np.random.default_rng(5)
     L, P, T = tcfg.num_layers, 32, 8
@@ -154,15 +160,19 @@ def test_paged_decode_step_matches_reference(lm, forge):
     kp = np.asarray(jnp.asarray(rng.standard_normal(shape), jnp.bfloat16))
     vp = np.asarray(jnp.asarray(rng.standard_normal(shape), jnp.bfloat16))
     B, MAXP = 3, 4
-    bt = rng.permutation(P)[: B * MAXP].reshape(B, MAXP).astype(np.int32)
+    n_pages = P - 1 if forge == "negative" else P     # page P - 1 in no block table
+    bt = rng.permutation(n_pages)[: B * MAXP].reshape(B, MAXP).astype(np.int32)
     pos = np.array([5, 17, 30], np.int32)
     toks = rng.integers(1, 128, size=B).astype(np.int32)
     perm = np.ones(P, np.int32)
     bitmap = np.ones(P, np.int32)
     sandbox = np.array([0, P, 1], np.int32)
-    if forge:
+    if forge is True:
         bitmap[bt[1, 0]] = 0      # another connection's page, in use
         bt[2, 1] = 1000           # wild pointer, in use
+    if forge == "negative":
+        bt[2, 3] = -1             # the page of row 2's position 30 (slot 6)
+    kp0, vp0 = kp.astype(np.float32), vp.astype(np.float32)
     args = [toks, pos, bt, pos + 1, kp, vp, perm, sandbox, bitmap]
     lj, kj, vj, oj = jax_step(jcfg, params, *[jnp.asarray(a) for a in args],
                               backend="ref")
@@ -170,12 +180,21 @@ def test_paged_decode_step_matches_reference(lm, forge):
     lt, kt, vt, ot = paged_decode_step(tcfg, tm, *targs)
     np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
     # one violation per row, counted once per layer
-    assert ot.tolist() == ([0, L, L] if forge else [0, 0, 0])
+    assert ot.tolist() == {False: [0, 0, 0], True: [0, L, L], "negative": [0, 0, L]}[forge]
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **BF16)
     assert kt.data_ptr() == targs[4].data_ptr()    # the pool, in place
+    pages = list(range(P))
+    if forge == "negative":
+        pages.remove(P - 1)
+        for got, want, before in ((kt, kj, kp0), (vt, vj, vp0)):
+            # the port's page P - 1 is unchanged ...
+            np.testing.assert_array_equal(got[:, P - 1].float().numpy(), before[:, P - 1])
+            # ... the reference's holds row 2's new K/V in slot 6 and only there
+            moved = np.asarray(want, np.float32)[:, P - 1] != before[:, P - 1]
+            assert moved.any(axis=(0, 2, 3)).tolist() == [t == 6 for t in range(T)]
     for got, want in ((kt, kj), (vt, vj)):
-        np.testing.assert_allclose(got.float().numpy(),
-                                   np.asarray(want, np.float32), **BF16)
+        np.testing.assert_allclose(got.float().numpy()[:, pages],
+                                   np.asarray(want, np.float32)[:, pages], **BF16)
 
 
 # -- the engine ----------------------------------------------------------------
