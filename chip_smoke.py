@@ -8,11 +8,14 @@ before the result line is printed:
 
 1. environment: the card's name and power limit; build the CUDA kernels
    from ``src/repro_torch/csrc`` (timed as set-up) and read ptxas's
-   register and spill report, which must cover the three bf16
-   flash-prefill instantiations and show no spill in them;
+   register and spill report, which must cover the two bf16
+   paged-attention and the three bf16 flash-prefill instantiations and
+   show no spill in them;
 2. the paged-attention and page-copy kernels against their plain PyTorch
    versions on the card, at the yi-9b slice's shapes, plus the sandbox
-   cases and clamped page ids;
+   cases in f32 and bf16, bf16 cases that reach the cluster split
+   (rejected pages on ranks other than 0, empty ranks, seq_len past
+   MAXP·T, 1 and 8 query rows a KV head) and clamped page ids;
 3. yi-9b at full width and depth (48 layers) with random weights from a
    seed, served by ``ServeEngine``: 8 concurrent ``generate_tokens``
    streams, then 3 requests through ``submit``/``run_until_drained``; the
@@ -21,7 +24,9 @@ before the result line is printed:
    dense-cache ``Model.prefill`` + ``Model.decode_step`` chain;
 5. where a yi-9b decode step's time goes, from ``torch.profiler``;
 6. cross-pod handoff between two full-width pools (gather/scatter);
-7. times with CUDA events (median over samples, L2 flushed before each);
+7. times with CUDA events (median over samples, L2 flushed before each),
+   the paged-attention kernel's SDPA yardstick under each backend alone
+   (the fastest is ``library_ms``);
 8. the SSD intra-chunk kernel against its plain version at mamba2-1.3b's
    batched prefill shape in bf16 and f32, with chunk decays above 88
    (where an unmasked exp overflows), and a sweep of the chunked scan
@@ -47,8 +52,9 @@ before the result line is printed:
     gemma3's first 12 layers, teacher-forced decode steps through the
     ring caches against kernel prefills of the same prefixes;
 15. gemma3 times: the flash-prefill kernel at yi-9b's and gemma3's
-    global and local layer shapes beside its plain version and SDPA, and
-    a B=1, 4,096-token prefill under ``torch.profiler``;
+    global and local layer shapes beside its plain version and SDPA
+    (each backend alone, the fastest kept), and a B=1, 4,096-token
+    prefill under ``torch.profiler``;
 
 then a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -129,9 +135,10 @@ def card_line() -> str:
 class Timer:
     """Median of per-call CUDA-event times. Before each call the L2 cache
     is flushed (the main path finds each layer's pool slice cold) and the
-    card is kept busy for ~0.1 ms, so the call is fully enqueued before
-    its start event fires and the host's launch overhead stays outside
-    the measured interval."""
+    card is kept busy for ~1 ms, so the call is fully enqueued before its
+    start event fires and the host's launch overhead stays outside the
+    measured interval. Phases 7 and 15 record that overhead (``host_us``):
+    an SDPA call's is near 0.1 ms, the spin this one replaced."""
 
     def __init__(self):
         self.flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -142,7 +149,7 @@ class Timer:
         times = []
         for _ in range(samples):
             self.flush_buf.zero_()
-            torch.cuda._sleep(200_000)   # spin ~0.1 ms of GPU clocks
+            torch.cuda._sleep(2_000_000)   # spin ~1 ms of GPU clocks
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -151,6 +158,52 @@ class Timer:
             stop.synchronize()
             times.append(start.elapsed_time(stop))
         return float(np.median(times))
+
+    @staticmethod
+    def host_us(fn, calls: int = 100) -> float:
+        """Mean host time to enqueue one call of ``fn``, in µs."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e6 * (t1 - t0) / calls
+
+
+SDPA_BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+
+
+def sdpa_by_backend(timer, call, plain):
+    """``call`` (one scaled_dot_product_attention) under each backend alone.
+    Returns the fastest backend's name, its ms and its max |Δ| against
+    ``plain`` (the output as ``call`` returns it), and every backend's ms
+    or why it refused the inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    every, errs = {}, {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            every[name] = "not in this torch"
+            continue
+
+        def under(backend=backend):
+            with sdpa_kernel(backend):
+                return call()
+        try:
+            got = under()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            every[name] = "refused: " + (str(e).strip().splitlines() or ["?"])[0][:160]
+            continue
+        errs[name] = (got.float() - plain).abs().max().item()
+        every[name] = timer.ms(under)
+    timed = {k: v for k, v in every.items() if isinstance(v, float)}
+    if not timed:
+        fail(f"no SDPA backend took the yardstick's inputs: {every}")
+    best = min(timed, key=timed.get)
+    return best, timed[best], errs[best], every
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -195,13 +248,66 @@ def check_k1(args, tol, expect_oob=None):
     return (out.float() - ref_out.float()).abs().max().item()
 
 
+def k1_sandbox_case(gen, name, dtype):
+    """The four sandbox cases of the reference's tests, plus rows with no
+    valid token; returns (args, expected oob)."""
+    args = k1_inputs(gen, B=2, Hq=4, Hkv=2, D=64, P=32, T=16, MAXP=4, dtype=dtype)
+    bt, perm, bitmap = args[3], args[5], args[7]
+    if name == "wild_pointer":
+        bt[0, 0] = 999
+        return args, [1, 0]
+    if name == "unsealed_page":
+        perm[bt[1, 0]] = 0
+        return args, [0, 1]
+    if name == "sandbox_off":
+        perm.zero_()
+        args[6] = torch.tensor([0, 32, 0], dtype=torch.int32, device="cuda")
+        return args, [0, 0]
+    if name == "foreign_bitmap":
+        bitmap[bt[0, 0]] = 0
+        return args, [1, 0]
+    # no valid token: a zero-length row and a fully rejected row
+    args[4] = torch.tensor([0, 20], dtype=torch.int32, device="cuda")
+    bitmap[bt[1, :2].long()] = 0
+    return args, [0, 2]
+
+
+K1_SANDBOX_CASES = ("wild_pointer", "unsealed_page", "sandbox_off", "foreign_bitmap",
+                    "empty_row")
+
+
+def k1_split_case(gen, name):
+    """bf16 cases that reach the cluster split (up to 8 blocks a sequence,
+    4 warps each; page i goes to rank i mod C); returns (args, expected
+    oob or None)."""
+    if name == "rejected_off_rank0":   # pages 1, 6 and 13 and an unsealed one
+        args = k1_inputs(gen, B=2, P=128, MAXP=32, lens=[470, 300])
+        bt, perm, bitmap = args[3], args[5], args[7]
+        bitmap[bt[0, [1, 6, 13]].long()] = 0
+        perm[bt[1, 3]] = 0
+        return args, [3, 1]
+    if name == "empty_ranks":          # one page beside thirty
+        return k1_inputs(gen, B=2, P=128, MAXP=32, lens=[10, 471]), [0, 0]
+    if name == "past_maxp":            # pages past MAXP are neither read nor counted
+        return k1_inputs(gen, B=2, P=64, MAXP=8, lens=[8 * 16 + 37, 5]), [0, 0]
+    qpk, D = (int(x) for x in re.fullmatch(r"qpk(\d+)_D(\d+)", name).groups())
+    Hkv = 4 if qpk == 1 else 2
+    return k1_inputs(gen, B=3, Hq=qpk * Hkv, Hkv=Hkv, D=D, P=128, MAXP=32), None
+
+
+K1_SPLIT_CASES = ("rejected_off_rank0", "empty_ranks", "past_maxp", "qpk1_D64",
+                  "qpk1_D128", "qpk8_D64", "qpk8_D128")
+K1_TOL = {torch.float32: TOL_F32, torch.bfloat16: TOL_K1_BF16}
+
+
 def phase_kernels(gen, main_lens):
-    """K1 at the slice's shapes and the four sandbox cases; K2 bitwise."""
+    """K1 at the slice's shapes, the sandbox cases and the split cases; K2
+    bitwise."""
     from repro_torch.kernels.scope_copy.kernel import gather_pages_cuda, scatter_pages_cuda
     from repro_torch.kernels.scope_copy.ref import gather_pages_ref, scatter_pages_ref
 
     # the slice shape at the main path's lengths: up to 30 in-use pages, so
-    # each of the kernel's 8 warps carries its softmax across several pages
+    # the bf16 kernel splits each sequence over a cluster
     k1_err = check_k1(k1_inputs(gen, lens=main_lens), TOL_K1_BF16)
     k1_err = max(k1_err, check_k1(k1_inputs(gen, lens=main_lens, dtype=torch.float32),
                                   TOL_F32))
@@ -209,30 +315,17 @@ def phase_kernels(gen, main_lens):
                                     (3, 8, 1, 128, 16, torch.float32),
                                     (4, 16, 4, 128, 16, torch.bfloat16),
                                     (2, 16, 2, 64, 8, torch.bfloat16)):
-        tol = TOL_F32 if dtype == torch.float32 else TOL_K1_BF16
         err = check_k1(k1_inputs(gen, B=B, Hq=Hq, Hkv=Hkv, D=D, P=64, T=T,
-                                 MAXP=6, dtype=dtype), tol)
+                                 MAXP=6, dtype=dtype), K1_TOL[dtype])
         k1_err = max(k1_err, err)
     cases = {}
-    for name, expect in (("wild_pointer", [1, 0]), ("unsealed_page", [0, 1]),
-                         ("sandbox_off", [0, 0]), ("foreign_bitmap", [1, 0]),
-                         ("empty_row", [0, 2])):
-        args = k1_inputs(gen, B=2, Hq=4, Hkv=2, D=64, P=32, T=16, MAXP=4,
-                         dtype=torch.float32)
-        bt, perm, bitmap = args[3], args[5], args[7]
-        if name == "wild_pointer":
-            bt[0, 0] = 999
-        elif name == "unsealed_page":
-            perm[bt[1, 0]] = 0
-        elif name == "sandbox_off":
-            perm.zero_()
-            args[6] = torch.tensor([0, 32, 0], dtype=torch.int32, device="cuda")
-        elif name == "foreign_bitmap":
-            bitmap[bt[0, 0]] = 0
-        else:   # no valid token: a zero-length row and a fully rejected row
-            args[4] = torch.tensor([0, 20], dtype=torch.int32, device="cuda")
-            bitmap[bt[1, :2].long()] = 0
-        cases[name] = check_k1(args, TOL_F32, expect_oob=expect)
+    for dtype in (torch.float32, torch.bfloat16):
+        for name in K1_SANDBOX_CASES:
+            args, expect = k1_sandbox_case(gen, name, dtype)
+            cases[f"{name}_{str(dtype)[6:]}"] = check_k1(args, K1_TOL[dtype], expect_oob=expect)
+    for name in K1_SPLIT_CASES:
+        args, expect = k1_split_case(gen, name)
+        cases[name] = check_k1(args, TOL_K1_BF16, expect_oob=expect)
 
     for dtype in (torch.bfloat16, torch.float32, torch.int32):
         for W in (8192, 7):            # 16-byte vector path and byte path
@@ -251,7 +344,7 @@ def phase_kernels(gen, main_lens):
                 fail(f"scatter_pages differs from its plain version ({dtype}, W={W})")
     log(f"phase 2 kernels vs plain: paged_attention at the slice shape (bf16 and "
         f"f32, B=8 Hq=32 Hkv=4 D=128 T=16 MAXP=64) and a D/GQA/dtype sweep, max|err| "
-        f"{k1_err:.3e}; sandbox cases "
+        f"{k1_err:.3e}; sandbox and split cases "
         f"{ {k: f'{v:.1e}' for k, v in cases.items()} }; gather/scatter bitwise "
         "for bf16/f32/i32 with clamped ids")
     # K2 either matches bitwise or the phase has failed
@@ -387,11 +480,12 @@ def phase_profile(eng, prompts, max_new):
         with eng._decode_lock:
             eng.scheduler.step_batch()
 
-    info = profile_steps(step, eng.device)
+    info = profile_steps(step, eng.device, watch="paged_attention")
     for g in gens:
         g.close()
     log(f"phase 5 where a decode step goes (B=8, {info['steps']} steps, then the "
-        f"same under the profiler): {profile_line(info)}")
+        f"same under the profiler): {profile_line(info)}; paged_attention "
+        f"{info['watch_ms_per_step']} ms per step")
     return info
 
 
@@ -502,13 +596,17 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
     q4 = q[:, :, None, :]
     sdpa = lambda: F.scaled_dot_product_attention(q4, k_c, v_c, attn_mask=mask,
                                                   enable_gqa=True)
-    lib_err = (sdpa()[:, :, 0].float() - paged_attention_ref(*args)[0].float()).abs().max()
+    plain = paged_attention_ref(*args)[0].float()[:, :, None, :]
+    backend, lib_ms, lib_err, every = sdpa_by_backend(timer, sdpa, plain)
     out["paged_attention"] = {
         "ms": timer.ms(lambda: paged_attention_cuda(*args)),
         "plain_ms": timer.ms(lambda: paged_attention_ref(*args)),
-        "library_ms": timer.ms(sdpa),
+        "library_ms": lib_ms, "library_backend": f"SDPA {backend}",
+        "library_ms_by_backend": every,
+        "host_us": timer.host_us(lambda: paged_attention_cuda(*args)),
+        "library_host_us": timer.host_us(sdpa),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": kv_bytes + io_bytes,
-        "library_max_abs_err_vs_plain": lib_err.item(),
+        "library_max_abs_err_vs_plain": lib_err,
     }
 
     # K2 at the transfer's shapes: one layer's rows of the flattened pool
@@ -524,19 +622,26 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
         "ms": timer.ms(lambda: gather_pages_cuda(flat, pages)),
         "plain_ms": timer.ms(lambda: gather_pages_ref(flat, pages)),
         "library_ms": timer.ms(lambda: torch.index_select(flat, 0, pages_l)),
+        "library_backend": "torch.index_select",
+        "host_us": timer.host_us(lambda: gather_pages_cuda(flat, pages)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
     }
     out["scatter_pages"] = {
         "ms": timer.ms(lambda: scatter_pages_cuda(dst, pages, wire)),
         "plain_ms": timer.ms(lambda: scatter_pages_ref(dst, pages, wire)),
         "library_ms": timer.ms(lambda: dst.index_copy_(0, pages_l, wire)),
+        "library_backend": "Tensor.index_copy_",
+        "host_us": timer.host_us(lambda: scatter_pages_cuda(dst, pages, wire)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
     }
     for name in ("gather_pages", "scatter_pages"):
         out[name]["GB_per_s"] = nbytes / out[name]["ms"] / 1e6
-    log("phase 7 times on %s (ms, median of %d, L2 flushed): %s" % (card, SAMPLES, json.dumps(
-        {k: {m: round(v, 5) for m, v in d.items() if isinstance(v, float)}
-         for k, d in out.items()})))
+    log("phase 7 times on %s (ms, median of %d, L2 flushed; host_us: µs to enqueue a "
+        "call): %s; paged_attention's yardstick by SDPA backend: %s" % (
+            card, SAMPLES, json.dumps(
+                {k: {m: (round(v, 5) if isinstance(v, float) else v) for m, v in d.items()
+                     if isinstance(v, (float, str))} for k, d in out.items()}),
+            json.dumps(out["paged_attention"]["library_ms_by_backend"])))
     return out
 
 
@@ -774,8 +879,8 @@ def phase_mamba_times(model, ssd_args, cache, tok, pos, card):
     b_ms, b_by = bound_ms(nbytes, flops)
     k4 = {"ms": timer.ms(lambda: ssd_intra_chunk_cuda(*ssd_args, Q)),
           "plain_ms": timer.ms(lambda: ssd_intra_chunk_ref(*ssd_args, Q)),
-          "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-          "flops": flops}
+          "library_ms": None, "library_backend": None, "bound_ms": b_ms, "bound_by": b_by,
+          "bytes": nbytes, "flops": flops}
 
     toks = torch.randint(1, model.cfg.vocab_size, (8, 512), dtype=torch.int32,
                          device=model.device)
@@ -999,13 +1104,16 @@ def phase_gemma_times(model, gen, card):
         else:
             sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
                                                           enable_gqa=True)
-        plain = flash_prefill_ref(q, k, v, window=window).float()
-        lib_err = (sdpa().transpose(1, 2).float() - plain).abs().max().item()
+        plain = flash_prefill_ref(q, k, v, window=window).float().transpose(1, 2)
+        backend, lib_ms, lib_err, every = sdpa_by_backend(timer, sdpa, plain)
         del plain
         out[name] = {
             "ms": timer.ms(lambda: flash_prefill_cuda(q, k, v, window=window)),
             "plain_ms": timer.ms(lambda: flash_prefill_ref(q, k, v, window=window)),
-            "library_ms": timer.ms(sdpa),
+            "library_ms": lib_ms, "library_backend": f"SDPA {backend}",
+            "library_ms_by_backend": every,
+            "host_us": timer.host_us(lambda: flash_prefill_cuda(q, k, v, window=window)),
+            "library_host_us": timer.host_us(sdpa),
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
             "pairs": B * k3_pairs(S, window), "library_max_abs_err_vs_plain": lib_err,
         }
@@ -1025,9 +1133,11 @@ def phase_gemma_times(model, gen, card):
     info["flash_prefill_share_of_busy"] = share
     log(f"phase 15 gemma3 times on {card} (ms, median of {SAMPLES}, L2 flushed): "
         + "; ".join(f"flash_prefill {n} {d['ms']:.4f} ({d['TFLOP_per_s']:.1f} TFLOP/s), plain "
-                    f"{d['plain_ms']:.4f}, SDPA {d['library_ms']:.4f} (max |Δ| vs plain "
-                    f"{d['library_max_abs_err_vs_plain']:.1e}), bound {d['bound_ms']:.4f} "
-                    f"({d['bound_by']})" for n, d in out.items())
+                    f"{d['plain_ms']:.4f}, {d['library_backend']} {d['library_ms']:.4f} (max "
+                    f"|Δ| vs plain {d['library_max_abs_err_vs_plain']:.1e}; by backend "
+                    f"{json.dumps(d['library_ms_by_backend'])}), bound {d['bound_ms']:.4f} "
+                    f"({d['bound_by']}), host µs a call {d['host_us']:.1f} (SDPA "
+                    f"{d['library_host_us']:.1f})" for n, d in out.items())
         + f"; prefill 1x4096 {prefill_ms:.2f} ms (median of 5, "
         f"{info['prefill_1x4096_tokens_per_s']:.0f} tokens/s; 2 more, then 2 under the "
         f"profiler: {profile_line(prof)}; flash_prefill {prof['watch_ms_per_step']:.2f} ms "
@@ -1088,11 +1198,12 @@ def main() -> int:
     log(f"phase 1 environment: {kind}, torch {torch.__version__} (CUDA "
         f"{torch.version.cuda}), kernels built in {t_build:.1f} s; ptxas (registers, "
         f"spill bytes): {ptxas}")
-    k3_bf16 = [f"flash_prefill_bf16_kernel<{D}>" for D in (64, 128, 256)]
-    if missing := [name for name in k3_bf16 if name not in ptxas]:
+    bf16_kernels = ([f"paged_attention_bf16_kernel<{D}>" for D in (64, 128)]
+                    + [f"flash_prefill_bf16_kernel<{D}>" for D in (64, 128, 256)])
+    if missing := [name for name in bf16_kernels if name not in ptxas]:
         fail(f"no ptxas report for {missing}: the build left none to check for spills")
-    if spilled := [name for name in k3_bf16 if ptxas[name][1]]:
-        fail(f"the tensor-core flash_prefill kernel spills registers: {spilled}")
+    if spilled := [name for name in bf16_kernels if ptxas[name][1]]:
+        fail(f"a tensor-core kernel spills registers: {spilled}")
 
     cfg = get_config("yi_9b")
     rng = np.random.default_rng(0)
@@ -1174,6 +1285,7 @@ def main() -> int:
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
         "library_ms": times[name]["library_ms"],
+        "library_backend": times[name]["library_backend"],
     } for name, (src, tpu, launches) in sources.items()]
 
     result = {"card": card, "build_s": t_build, "ptxas": ptxas, "serve": serve, "dense": dense,

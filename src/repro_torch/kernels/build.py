@@ -135,6 +135,43 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def variant_source(src: str, subs) -> str:
+    """``src`` with each (old, new) substitution applied; each ``old`` must
+    occur exactly once."""
+    for old, new in subs:
+        if src.count(old) != 1:
+            raise ValueError(f"substitution anchor found {src.count(old)} times: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants(source: str, variants: dict, out_name: str, entry: str) -> dict:
+    """Build each variant of ``csrc/<source>`` (name → its substitutions)
+    as a library of its own in ``build/<out_name>/``, one nvcc each, all
+    started together. Returns name → (the loaded library, with ``entry``'s
+    signature set, or None if the build failed; nvcc's output)."""
+    src = (CSRC / source).read_text()
+    out_dir = BUILD_ROOT.parent / out_name
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, subs in variants.items():
+        cu = out_dir / f"{name}.cu"
+        cu.write_text(variant_source(src, subs))
+        procs[name] = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-shared", str(cu), "-o", str(out_dir / f"{name}.so")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    built = {}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        lib = None
+        if proc.returncode == 0:
+            lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+            getattr(lib, entry).argtypes = SIGNATURES[entry]
+            getattr(lib, entry).restype = ctypes.c_int
+        built[name] = (lib, out)
+    return built
+
+
 def check(code: int, name: str) -> None:
     """Raise if a C entry point reported a launch error."""
     if code != 0:

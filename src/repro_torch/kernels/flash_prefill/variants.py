@@ -15,11 +15,8 @@ and per shape and writes ``chiprun_out/k3_variants.json``.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
@@ -56,40 +53,14 @@ EDGES = [(1, 0, 0.0), (1, 5, 0.0), (65, 1, 0.0), (130, 64, 0.0), (200, 65, 0.0),
          (300, 17, 0.0), (1, 0, 30.0), (37, 0, 30.0), (37, 16, 30.0)]
 
 
-def variant_source(src: str, subs) -> str:
-    for old, new in subs:
-        if src.count(old) != 1:
-            raise ValueError(f"substitution anchor found {src.count(old)} times: {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def build_variants(names):
     """name → (loaded library or None, ptxas report or the build error)."""
     from chip_smoke import ptxas_report
 
-    src = (build.CSRC / "flash_prefill.cu").read_text()
-    out_dir = build.BUILD_ROOT.parent / "k3_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(variant_source(src, VARIANTS[name]))
-        procs[name] = subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-shared", str(cu), "-o",
-             str(out_dir / f"{name}.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
-    built = {}
-    for name, p in procs.items():
-        log_, _ = p.communicate()
-        if p.returncode:
-            built[name] = (None, log_[-3000:])
-            continue
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
-        lib.flash_prefill_launch.argtypes = build.SIGNATURES["flash_prefill_launch"]
-        lib.flash_prefill_launch.restype = ctypes.c_int
-        built[name] = (lib, ptxas_report([log_]))
-    return built
+    built = build.build_variants("flash_prefill.cu", {n: VARIANTS[n] for n in names},
+                                 "k3_variants", "flash_prefill_launch")
+    return {n: (lib, ptxas_report([log_]) if lib else log_[-3000:])
+            for n, (lib, log_) in built.items()}
 
 
 def launch(lib, q, k, v, window=0, softcap=0.0):

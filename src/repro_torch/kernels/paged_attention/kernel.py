@@ -14,8 +14,8 @@ import torch
 from .. import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)   # a lane owns D/32 columns: 2 or 4
-MAX_Q_PER_KV = 8             # query rows per KV head held in registers
+HEAD_DIMS = (64, 128)   # bf16: 4 or 8 k-steps of mma.sync; f32: a lane owns D/32 columns
+MAX_Q_PER_KV = 8        # query rows per KV head: the m16n8k16 A fragment's 8 live rows
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -24,10 +24,12 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_tab, seq_lens, perm_bits,
-                         sandbox, bitmap):
+                         sandbox, bitmap, lib=None):
     """q: (B, Hq, D); pools: (P, T, Hkv, D); block_tab: (B, MAXP) int32;
     seq_lens: (B,) int32; perm_bits/bitmap: (P,) int32; sandbox: (3,)
-    int32. Returns (out (B, Hq, D) in q's dtype, oob (B,) int32)."""
+    int32. Returns (out (B, Hq, D) in q's dtype, oob (B,) int32). ``lib``:
+    the kernel library to launch from (default: the build of ``csrc/``;
+    ``variants.py`` and ``timeline.py`` pass their own builds)."""
     tensors = (q, k_pool, v_pool, block_tab, seq_lens, perm_bits, sandbox,
                bitmap)
     dev = q.device
@@ -57,7 +59,7 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tab, seq_lens, perm_bits,
 
     out = torch.empty_like(q)
     oob = torch.empty((B,), dtype=torch.int32, device=dev)
-    lib = build.library()
+    lib = lib if lib is not None else build.library()
     with torch.cuda.device(dev):
         code = lib.paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

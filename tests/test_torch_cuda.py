@@ -35,7 +35,7 @@ TOL = {torch.float32: dict(atol=5e-5, rtol=1e-4),     # fp32 accumulation order
 K1_TOL = {torch.float32: TOL[torch.float32],
           torch.bfloat16: dict(atol=2e-3, rtol=1e-2)}
 # the sequence lengths chip_smoke.py serves (prompt + 16 new tokens): up to
-# 30 in-use pages of 16, so each of the kernel's 8 warps walks several
+# 30 in-use pages of 16, split over the bf16 kernel's cluster
 SLICE_LENS = [471, 244, 419, 422, 292, 343, 340, 342]
 
 
@@ -92,13 +92,14 @@ def test_paged_attention_kernel_matches_plain(dev, B, Hq, Hkv, D, T, dtype):
     _k1_check(_k1_inputs(B, Hq, Hkv, D, T, dtype, seed=B + D), dev, K1_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case,expect", [
     ("wild_pointer", [1, 0]), ("unsealed_page", [0, 1]),
     ("sandbox_off", [0, 0]), ("foreign_bitmap", [1, 0]), ("empty_row", [0, 2]),
 ])
-def test_paged_attention_kernel_sandbox_cases(dev, case, expect):
+def test_paged_attention_kernel_sandbox_cases(dev, case, expect, dtype):
     """tests/test_kernels.py:70-99, plus rows with no valid token (zeros)."""
-    args = _k1_inputs(2, 4, 2, 64, 16, torch.float32, P=32, MAXP=4)
+    args = _k1_inputs(2, 4, 2, 64, 16, dtype, P=32, MAXP=4)
     bt, perm, bitmap = args[3], args[5], args[7]
     if case == "wild_pointer":
         bt[0, 0] = 999
@@ -112,7 +113,34 @@ def test_paged_attention_kernel_sandbox_cases(dev, case, expect):
     else:
         args[4] = torch.tensor([0, 20], dtype=torch.int32)
         bitmap[bt[1, :2].long()] = 0
-    assert _k1_check(args, dev, TOL[torch.float32]) == expect
+    assert _k1_check(args, dev, K1_TOL[dtype]) == expect
+
+
+def test_paged_attention_bf16_rejected_pages_off_rank_0(dev):
+    """The bf16 kernel gives page i of a sequence to cluster rank i mod C
+    (C up to 8): rejected pages 1, 6 and 13 and an unsealed page 3 fall to
+    ranks other than 0, and each is still counted once."""
+    args = _k1_inputs(2, 32, 4, 128, 16, torch.bfloat16, P=128, MAXP=32, lens=[470, 300])
+    bt, perm, bitmap = args[3], args[5], args[7]
+    bitmap[bt[0, [1, 6, 13]].long()] = 0
+    perm[bt[1, 3]] = 0
+    assert _k1_check(args, dev, K1_TOL[torch.bfloat16]) == [3, 1]
+
+
+@pytest.mark.parametrize("lens,MAXP", [
+    ([10, 471], 32),        # one page beside thirty: most ranks of one cluster idle
+    ([8 * 16 + 37, 5], 8),  # seq_len past MAXP·T: the pages past MAXP are not read
+])
+def test_paged_attention_bf16_split_edges(dev, lens, MAXP):
+    args = _k1_inputs(2, 32, 4, 128, 16, torch.bfloat16, P=128, MAXP=MAXP, lens=lens)
+    assert _k1_check(args, dev, K1_TOL[torch.bfloat16]) == [0, 0]
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (16, 2)])   # 1 and 8 query rows a KV head
+def test_paged_attention_bf16_group_sizes(dev, Hq, Hkv, D):
+    args = _k1_inputs(3, Hq, Hkv, D, 16, torch.bfloat16, P=128, MAXP=32, seed=Hq + D)
+    _k1_check(args, dev, K1_TOL[torch.bfloat16])
 
 
 def test_paged_attention_kernel_rejects_what_it_does_not_take(dev):
