@@ -9,8 +9,8 @@ before the result line is printed:
 1. environment: the card's name and power limit; build the CUDA kernels
    from ``src/repro_torch/csrc`` (timed as set-up) and read ptxas's
    register and spill report, which must cover the two bf16
-   paged-attention and the three bf16 flash-prefill instantiations and
-   show no spill in them;
+   paged-attention, the three bf16 flash-prefill and the bf16 SSD
+   instantiations and show no spill in them;
 2. the paged-attention and page-copy kernels against their plain PyTorch
    versions on the card, at the yi-9b slice's shapes, plus the sandbox
    cases in f32 and bf16, bf16 cases that reach the cluster split
@@ -23,14 +23,16 @@ before the result line is printed:
 4. end-to-end check of the paged kernel: the same prompts through the
    dense-cache ``Model.prefill`` + ``Model.decode_step`` chain;
 5. where a yi-9b decode step's time goes, from ``torch.profiler``;
-6. cross-pod handoff between two full-width pools (gather/scatter);
+6. cross-pod handoff between two full-width pools: one gather and one
+   scatter a tensor over every layer's rows;
 7. times with CUDA events (median over samples, L2 flushed before each),
    the paged-attention kernel's SDPA yardstick under each backend alone
    (the fastest is ``library_ms``);
 8. the SSD intra-chunk kernel against its plain version at mamba2-1.3b's
-   batched prefill shape in bf16 and f32, with chunk decays above 88
-   (where an unmasked exp overflows), and a sweep of the chunked scan
-   through the kernel against the recurrence;
+   batched prefill shape in bf16 (tensor cores) and f32 (CUDA cores),
+   with chunk decays above 88 (where an unmasked exp overflows), a bf16
+   sweep of ragged tile edges, and a sweep of the chunked scan through
+   the kernel against the recurrence;
 9. mamba2-1.3b at full width and depth (48 layers), random weights from
    a seed: 8 requests prefilled alone through ``Model.prefill`` (the SSD
    kernel's launch count is read around these prefills), their caches
@@ -96,6 +98,13 @@ TOL_TF = 1e-3          # fp32 decode vs prefill (tests/test_arch_smoke.py:113)
 TOL_TF_MAX = 1e-2      # ... where 48 layers need more: printed, never beyond this
 # mamba2-1.3b's SSD at the batched prefill of 8 x 512 tokens
 SSD_SHAPE = dict(B=8, S=512, H=64, P=64, N=128, Q=128)
+# (S, chunk, H, P, N) for the bf16 SSD kernel alone at B=2: the chunked
+# sweep's ragged shapes at one and three chunks, a chunk of 100 (not a
+# multiple of 16) and odd P and N (element loads, 4-byte stores)
+K4_BF16_CASES = [(m * Q, Q, H, P, N) for Q, H, P, N in ((16, 8, 16, 16), (16, 64, 16, 128),
+                                                        (128, 8, 64, 16), (128, 12, 24, 17))
+                 for m in (1, 3)] + [(100, 128, 12, 24, 17), (100, 128, 64, 64, 128),
+                                     (120, 40, 3, 17, 9)]
 # flash_prefill alone, as paged_attention: both sides accumulate in fp32
 TOL_K3 = {torch.float32: TOL_F32, torch.bfloat16: TOL_K1_BF16}
 # (B, S, Hq, Hkv, D, window, softcap): yi-9b's prefill of its longest served
@@ -547,8 +556,8 @@ def phase_transfer(cfg, gen):
     want = 2 * L * n * pc.page_tokens * cfg.num_kv_heads * cfg.head_dim * 2
     if moved != want:
         fail(f"transfer moved {moved} bytes, expected {want}")
-    if launches != {"gather_pages": 2 * L, "scatter_pages": 2 * L}:
-        fail(f"transfer launches {launches}, expected {2 * L} each")
+    if launches != {"gather_pages": 2, "scatter_pages": 2}:
+        fail(f"transfer launches {launches}, expected 2 each (K and V, all layers at once)")
     idx_s, idx_d = torch.tensor(sp, device=dev), torch.tensor(dp, device=dev)
     for a, b in ((src.k, dst.k), (src.v, dst.v)):
         if not torch.equal(a[:, idx_s].view(torch.int16), b[:, idx_d].view(torch.int16)):
@@ -558,7 +567,8 @@ def phase_transfer(cfg, gen):
         if b[:, rest].abs().sum().item() != 0:
             fail("the transfer wrote outside the destination pages")
     log(f"phase 6 cross-pod handoff: {n} pages x {L} layers x K,V = {moved} bytes, "
-        f"bitwise equal; {2 * L} gathers + {2 * L} scatters in {1e3 * dt:.2f} ms")
+        f"bitwise equal, nothing written outside the destination pages; 2 gathers + 2 "
+        f"scatters of {L * n} rows each in {1e3 * dt:.2f} ms")
     return src, sp, {"bytes": moved, "ms": 1e3 * dt, "launches": launches}
 
 
@@ -609,15 +619,19 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
         "library_max_abs_err_vs_plain": lib_err,
     }
 
-    # K2 at the transfer's shapes: one layer's rows of the flattened pool
-    flat = src_pool.k.view(-1, src_pool.k[0, 0].numel())
-    pages = torch.tensor(src_pages, dtype=torch.int32, device="cuda")
+    # K2 at the transfer's shape: one launch over every layer's rows of the
+    # flattened (L·P, W) pool, the ids as transfer_pages_cross_pod builds them
+    L, P_ = src_pool.k.shape[:2]
+    flat = src_pool.k.view(L * P_, -1)
+    layer = P_ * torch.arange(L, dtype=torch.int32, device="cuda")
+    pages = (torch.tensor(src_pages, dtype=torch.int32, device="cuda")[None, :]
+             + layer[:, None]).reshape(-1)
     pages_l = pages.long()
-    n, W = len(src_pages), flat.shape[1]
+    n, W = pages.numel(), flat.shape[1]
     nbytes = 2 * n * W * flat.element_size() + n * 4
     b_ms, b_by = bound_ms(nbytes, 0)
     wire = gather_pages_cuda(flat, pages)
-    dst = torch.zeros_like(flat[:1024])
+    dst = torch.zeros_like(flat)
     out["gather_pages"] = {
         "ms": timer.ms(lambda: gather_pages_cuda(flat, pages)),
         "plain_ms": timer.ms(lambda: gather_pages_ref(flat, pages)),
@@ -637,8 +651,9 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
     for name in ("gather_pages", "scatter_pages"):
         out[name]["GB_per_s"] = nbytes / out[name]["ms"] / 1e6
     log("phase 7 times on %s (ms, median of %d, L2 flushed; host_us: µs to enqueue a "
-        "call): %s; paged_attention's yardstick by SDPA backend: %s" % (
-            card, SAMPLES, json.dumps(
+        "call; gather/scatter over %d rows of %d bytes): %s; paged_attention's yardstick by "
+        "SDPA backend: %s" % (
+            card, SAMPLES, n, W * flat.element_size(), json.dumps(
                 {k: {m: (round(v, 5) if isinstance(v, float) else v) for m, v in d.items()
                      if isinstance(v, (float, str))} for k, d in out.items()}),
             json.dumps(out["paged_attention"]["library_ms_by_backend"])))
@@ -699,6 +714,7 @@ def phase_ssd_kernel(gen, card):
     in bf16 and f32, then a sweep of the chunked scan through the kernel
     against the recurrence and the plain chunked formulation."""
     from repro_torch.kernels.ssd import ssd_chunked, ssd_chunked_ref, ssd_sequential_ref
+    from repro_torch.kernels.ssd.kernel import bf16_blocks_per_sm
 
     sh = SSD_SHAPE
     B, S, H, P, N, Q = (sh[k] for k in "BSHPNQ")
@@ -710,6 +726,14 @@ def phase_ssd_kernel(gen, card):
     err, scale = {}, {}
     err["bf16"], scale["bf16"] = check_k4(args, Q)
     err["f32"], scale["f32"] = check_k4(ssd_inputs(gen, B, S, H, P, N, torch.float32), Q)
+    ragged = {}
+    for S_, chunk, H_, P_, N_ in K4_BF16_CASES:
+        e, sc = check_k4(ssd_inputs(gen, 2, S_, H_, P_, N_, torch.bfloat16), chunk)
+        ragged[f"S{S_} Q{min(chunk, S_)} H{H_} P{P_} N{N_}"] = e
+        err["bf16"], scale["bf16"] = max(err["bf16"], e), max(scale["bf16"], sc)
+    blocks = bf16_blocks_per_sm()
+    if blocks < 2:
+        fail(f"the bf16 SSD kernel fits {blocks} block(s) an SM, not 2")
 
     sweep_err = 0.0
     cases = [(S_, Q_, H_, P_, N_) for S_ in (16, 100, 300)
@@ -738,12 +762,15 @@ def phase_ssd_kernel(gen, card):
         fail("ssd_chunked on the card does not continue from a carried state")
     log(f"phase 8 ssd_intra_chunk vs plain on {card}: B={B} S={S} H={H} P={P} N={N} Q={Q}, "
         f"{hot_heads}/{H} heads with a chunk decay above 88 (max "
-        f"{chunk_decay.max().item():.1f}); max |err| bf16 {err['bf16']:.3e} (max |ref| "
-        f"{scale['bf16']:.3e}), f32 {err['f32']:.3e} (max |ref| {scale['f32']:.3e}); "
+        f"{chunk_decay.max().item():.1f}); bf16 on the tensor cores ({blocks} blocks an SM) "
+        f"there and at {len(ragged)} ragged shapes max |err| {err['bf16']:.3e} (max |ref| "
+        f"{scale['bf16']:.3e}; by shape { {k: f'{v:.1e}' for k, v in ragged.items()} }), "
+        f"f32 {err['f32']:.3e} (max |ref| {scale['f32']:.3e}); "
         f"atol {TOL_K4:g}·max|ref|, rtol {TOL_K4:g}; "
         f"{len(cases)}-case chunked sweep + continuation vs recurrence max |err| "
         f"{sweep_err:.3e} (atol/rtol {TOL_SCAN['atol']:g})")
     return {"max_abs_err": max(err.values()), "err": err, "max_abs_ref": scale,
+            "bf16_ragged_max_abs_err": ragged, "bf16_blocks_per_sm": blocks,
             "hot_heads": hot_heads,
             "max_chunk_decay": chunk_decay.max().item(), "sweep_max_abs_err": sweep_err,
             "args": args}
@@ -1199,7 +1226,8 @@ def main() -> int:
         f"{torch.version.cuda}), kernels built in {t_build:.1f} s; ptxas (registers, "
         f"spill bytes): {ptxas}")
     bf16_kernels = ([f"paged_attention_bf16_kernel<{D}>" for D in (64, 128)]
-                    + [f"flash_prefill_bf16_kernel<{D}>" for D in (64, 128, 256)])
+                    + [f"flash_prefill_bf16_kernel<{D}>" for D in (64, 128, 256)]
+                    + ["ssd_intra_chunk_bf16_kernel"])
     if missing := [name for name in bf16_kernels if name not in ptxas]:
         fail(f"no ptxas report for {missing}: the build left none to check for spills")
     if spilled := [name for name in bf16_kernels if ptxas[name][1]]:

@@ -46,6 +46,8 @@ SIGNATURES = {
     "scatter_pages_launch": [_P] * 3 + [_I] * 3 + [_P],
     # x, dt, A, Bm, Cm, y, states, decay, B, S, H, P, N, Q, dtype code, stream
     "ssd_intra_chunk_launch": [_P] * 8 + [_I] * 7 + [_P],
+    # no arguments; blocks of the bf16 kernel an SM, or -(CUDA error)
+    "ssd_intra_chunk_bf16_blocks_per_sm": [],
     # q, k, v, out, B, S, Hq, Hkv, D, window, dtype code, softcap, stream
     "flash_prefill_launch": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
 }

@@ -23,9 +23,11 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"ssd_intra_chunk kernel: {msg}")
 
 
-def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
+def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int, lib=None):
     """x: (B,S,H,P); dt: (B,S,H) fp32; A: (H,) fp32; Bm/Cm: (B,S,N) in x's
     dtype (fp32 or bf16). S must be a multiple of Q = min(chunk, S).
+    ``lib``: the kernel library to launch from (default: the build of
+    ``csrc/``; ``variants.py`` passes its own builds).
 
     Returns y_diag (B,S,H,P), states (B,nc,H,N,P), decay (B,nc,H), fp32.
     """
@@ -55,7 +57,7 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
     y = torch.empty((B, S, H, P), **f32)
     states = torch.empty((B, nc, H, N, P), **f32)
     decay = torch.empty((B, nc, H), **f32)
-    lib = build.library()
+    lib = lib if lib is not None else build.library()
     with torch.cuda.device(dev):
         code = lib.ssd_intra_chunk_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
@@ -67,3 +69,13 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int):
 
 
 ssd_intra_chunk_cuda.launches = 0
+
+
+def bf16_blocks_per_sm(lib=None) -> int:
+    """Blocks of the bf16 kernel that share one SM (its shared memory and
+    registers, as the CUDA occupancy calculator counts them)."""
+    lib = lib if lib is not None else build.library()
+    n = lib.ssd_intra_chunk_bf16_blocks_per_sm()
+    if n < 0:
+        build.check(-n, "ssd_intra_chunk_bf16_blocks_per_sm")
+    return n

@@ -162,14 +162,24 @@ def transfer_pages_cross_pod(src_pool: PagedKVPool, dst_pool: PagedKVPool,
                              dst_pages: List[int]) -> int:
     """The fallback data plane (§4.7): when prefill and decode live in
     different pods, the block-table handoff degrades to gather(src pages)
-    → wire → scatter(dst pages), per layer, for K and V. The destination
-    pool is updated in place. Returns the bytes moved — the number the
-    zero-copy path avoids entirely."""
-    L, P = src_pool.k.shape[0], src_pool.k.shape[1]
-    dev = src_pool.device
-    sp = torch.tensor(src_pages, dtype=torch.int32, device=dev)
-    dp = torch.tensor(dst_pages, dtype=torch.int32, device=dst_pool.device)
+    → wire → scatter(dst pages) for K and V. The destination pool is
+    updated in place. Returns the bytes moved — the number the zero-copy
+    path avoids entirely.
 
+    The reference gathers and scatters layer by layer; here each pool is
+    a flat (L·P, W) view and one gather and one scatter move every layer's
+    rows of a tensor, four launches a transfer. Each id is clamped to the
+    flat view, as the per-layer launches clamped theirs."""
+    L, P = src_pool.k.shape[0], src_pool.k.shape[1]
+
+    def flat_ids(pages, device):
+        # page ids offset per layer into the flattened (L·P, W) pool
+        ids = torch.tensor(pages, dtype=torch.int32, device=device)
+        layer = P * torch.arange(L, dtype=torch.int32, device=device)
+        return (ids[None, :] + layer[:, None]).reshape(-1)
+
+    sp = flat_ids(src_pages, src_pool.device)
+    dp = flat_ids(dst_pages, dst_pool.device)
     moved = 0
     for name in ("k", "v"):
         src_t, dst_t = getattr(src_pool, name), getattr(dst_pool, name)
@@ -179,11 +189,9 @@ def transfer_pages_cross_pod(src_pool: PagedKVPool, dst_pool: PagedKVPool,
         # views, not copies: the scatter lands in the destination pool
         src = src_t.view(L * P, -1)
         dst = dst_t.view(L * P, -1)
-        # page ids offset per layer into the flattened (L·P, W) pool
-        for l in range(L):
-            wire = gather_pages(src, sp + l * P)
-            scatter_pages(dst, dp + l * P, wire.to(dst.device))
-            moved += wire.numel() * wire.element_size()
+        wire = gather_pages(src, sp)
+        scatter_pages(dst, dp, wire.to(dst.device))
+        moved += wire.numel() * wire.element_size()
     src_pool.byref_bytes_out += moved
     dst_pool.byref_bytes_in += moved
     return moved

@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core.orchestrator import Orchestrator  # noqa: E402
 from repro_torch.kernels.flash_prefill import flash_prefill, flash_prefill_ref  # noqa: E402
 from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda  # noqa: E402
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_ref  # noqa: E402
@@ -24,7 +25,8 @@ from repro_torch.kernels.scope_copy.ref import gather_pages_ref, scatter_pages_r
 from repro_torch.kernels.ssd import ssd_chunked, ssd_intra_chunk_ref, ssd_sequential_ref  # noqa: E402
 from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.serving import PoolConfig, ServeEngine, paged_decode_step  # noqa: E402
+from repro_torch.serving import PagedKVPool, PoolConfig, ServeEngine, paged_decode_step  # noqa: E402
+from repro_torch.serving import transfer_pages_cross_pod  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -170,6 +172,33 @@ def test_scope_copy_kernels_bitwise(dev, dtype, W):
     assert torch.equal(scattered, scatter_pages_ref(pool.clone(), dst, buf))
 
 
+def test_transfer_cross_pod_on_card_is_two_gathers_and_two_scatters(dev):
+    """One gather and one scatter a tensor over all layers' rows: the bytes
+    of every layer land bitwise, and nothing outside the destination pages
+    is written."""
+    cfg = get_smoke_config("yi_9b")
+    pc = PoolConfig(num_pages=32, page_tokens=8, max_pages_per_seq=8)
+    orch = Orchestrator()
+    src = PagedKVPool(orch, cfg, pc, owner_pid=1, device=dev)
+    dst = PagedKVPool(orch, cfg, pc, owner_pid=2, device=dev)
+    g = torch.Generator().manual_seed(2)
+    for t in (src.k, src.v):
+        t.copy_(torch.randn(t.shape, generator=g).to(t.dtype))
+    sp, dp = [3, 9, 17, 30], [5, 6, 7, 31]
+    n0 = (gather_pages.launches, scatter_pages.launches)
+    moved = transfer_pages_cross_pod(src, dst, sp, dp)
+    torch.cuda.synchronize()
+    assert (gather_pages.launches - n0[0], scatter_pages.launches - n0[1]) == (2, 2)
+    L = cfg.num_layers
+    assert moved == 2 * L * len(sp) * 8 * cfg.num_kv_heads * cfg.head_dim * 2
+    assert src.byref_bytes_out == dst.byref_bytes_in == moved
+    rest = torch.ones(pc.num_pages, dtype=torch.bool)
+    rest[dp] = False
+    for a, b in ((src.k, dst.k), (src.v, dst.v)):
+        assert torch.equal(a[:, sp].view(torch.int16), b[:, dp].view(torch.int16))
+        assert b[:, rest.to(dev)].abs().sum().item() == 0
+
+
 def _card_config():
     """yi-9b's smoke shape with the kernel's smallest head_dim (64)."""
     return replace(get_smoke_config("yi_9b"), head_dim=64)
@@ -261,6 +290,29 @@ def test_ssd_kernel_matches_plain_at_slice_shape(dev, dtype):
     torch.cuda.synchronize()
     assert ssd_intra_chunk_cuda.launches == n0 + 1
     for g, w in zip(got, ssd_intra_chunk_ref(*args, 128)):
+        _close_scaled(g, w)
+
+
+# (S, chunk, H, P, N) for the bf16 kernel alone: the ragged shapes of the
+# chunked sweep below at one and at three chunks, a chunk of 100 (not a
+# multiple of 16) and odd P and N (element loads, 4-byte stores)
+K4_BF16_CASES = [(m * Q, Q, H, P, N) for Q, H, P, N in ((16, 8, 16, 16), (16, 64, 16, 128),
+                                                        (128, 8, 64, 16), (128, 12, 24, 17))
+                 for m in (1, 3)] + [(100, 128, 12, 24, 17), (100, 128, 64, 64, 128),
+                                     (120, 40, 3, 17, 9)]
+
+
+@pytest.mark.parametrize("S,chunk,H,P,N", K4_BF16_CASES)
+def test_ssd_kernel_bf16_matches_plain_at_ragged_shapes(dev, S, chunk, H, P, N):
+    """The tensor-core bf16 kernel at every tile edge it zero-fills, with
+    mamba2's strong decays, against the plain version at the slice test's
+    tolerance."""
+    args = [a.to(dev) for a in _ssd_inputs(2, S, H, P, N, torch.bfloat16, seed=S + H)]
+    n0 = ssd_intra_chunk_cuda.launches
+    got = ssd_intra_chunk_cuda(*args, chunk)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk_cuda.launches == n0 + 1
+    for g, w in zip(got, ssd_intra_chunk_ref(*args, chunk)):
         _close_scaled(g, w)
 
 

@@ -11,13 +11,16 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_prefill import variants as k3_variants  # noqa: E402
 from repro_torch.kernels.paged_attention import timeline as k1_timeline  # noqa: E402
 from repro_torch.kernels.paged_attention import variants as k1_variants  # noqa: E402
+from repro_torch.kernels.ssd import variants as k4_variants  # noqa: E402
 
 
 @pytest.mark.parametrize("source,variants", [
     ("paged_attention.cu", k1_variants.VARIANTS),
     ("paged_attention.cu", k1_timeline.VARIANTS),
     ("flash_prefill.cu", k3_variants.VARIANTS),
-], ids=["K1", "K1-timeline", "K3"])
+    ("ssd.cu", k4_variants.VARIANTS),
+    ("ssd.cu", k4_variants.DIAGNOSTICS),
+], ids=["K1", "K1-timeline", "K3", "K4", "K4-diagnostics"])
 def test_variant_substitutions_apply_to_the_source(source, variants):
     src = (build.CSRC / source).read_text()
     for name, subs in variants.items():
