@@ -57,6 +57,18 @@ before the result line is printed:
     global and local layer shapes beside its plain version and SDPA
     (each backend alone, the fastest kept), and a B=1, 4,096-token
     prefill under ``torch.profiler``;
+16. the RPC plane at yi-9b full width (run after phase 5, on phase 3's
+    model and prompts): a ``ServeEngine(serve_threaded=True)`` whose
+    decode service is served by a ``ServerLoop`` thread; 8 client
+    threads, each with its own stub, stream phase 3's prompts through
+    ``decode.generate_stream`` over the ring (tokens equal phase 3's or
+    differ first at a near-tie; K1 and K3 launch L x steps and L x
+    prefills); 3 ``submit``s whose handoffs cross the ring under 200
+    bytes each; the median handoff (seal + ``stub.attach``) inline and
+    threaded; a cross-pod ``attach_remote`` whose ``PoolPages`` argument
+    migrates the KV in 2 gathers + 2 scatters charged to the fallback
+    link, decoding the same tokens as the same-pod handoff; no page or
+    seal left and the serving thread stopped;
 
 then a ``{"kernels": [...]}`` line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -74,6 +86,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1172,6 +1185,336 @@ def phase_gemma_times(model, gen, card):
     return info
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the RPC plane (the decode service over the ring, byref handoff)
+# ---------------------------------------------------------------------------
+def near_tie(model, prompt, prefix) -> bool:
+    """Phase 4's rule at one step: after ``prompt + prefix`` the top-2 gap
+    of the dense chain's logits is within the bf16 tolerance of the top."""
+    toks = torch.tensor([prompt + prefix], dtype=torch.int32, device=model.device)
+    top2 = torch.topk(model.prefill(toks)[0][0], 2).values.tolist()
+    return top2[0] - top2[1] <= TOL_BF16["atol"] + TOL_BF16["rtol"] * abs(top2[0])
+
+
+def stream_clients(eng, prompts, max_new, pid0, client_sleep_us=None):
+    """One thread a prompt, each with its own stub (pid ``pid0 + i``),
+    streaming through the engine's ServerLoop thread. ``client_sleep_us``
+    pins the clients' chunk polling to naps of that length (the default
+    policy spins, yielding the GIL). Returns the token lists."""
+    from repro_torch.core.channel import BusyWaitPolicy
+    from repro_torch.serving import DecodeService
+
+    outs, errors = [None] * len(prompts), []
+    barrier = threading.Barrier(len(prompts))
+
+    def client(i):
+        try:
+            stub = eng.router.stub(eng.endpoint_name, DecodeService, pid=pid0 + i)
+            if client_sleep_us is not None:
+                stub.connection.target.wait_policy = BusyWaitPolicy(
+                    fixed_sleep_us=client_sleep_us)
+            barrier.wait(timeout=60)
+            outs[i] = list(stub.generate_stream.stream(prompts[i], max_new, timeout=600.0))
+        except Exception as e:   # reported below
+            errors.append((i, repr(e)))
+            barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            fail("a client stream thread did not finish")
+    if errors:
+        fail(f"client streams failed: {errors}")
+    return outs
+
+
+def handoff_bytes_for(pages: int) -> int:
+    """The marshalled (rid, prompt_len, page ids) tuple: a 3-value vec
+    (8 + 3 x 16 B) and a vec of ``pages`` values (8 + 16 B each)."""
+    return 64 + 16 * pages
+
+
+def time_handoffs(eng, n, prompt_tokens=512, max_new=MAX_NEW):
+    """``n`` same-pod handoffs (seal + ``stub.attach`` over the ring) of a
+    synthetic request, each timed around ``_handoff``; the request is
+    retired between calls. Returns (median µs, bytes a handoff)."""
+    from repro_torch.serving import Request
+
+    samples, sizes = [], set()
+    for _ in range(n):
+        req = Request(eng._mint_rid(), list(range(1, prompt_tokens + 1)), max_new)
+        req.pages = eng.pool.alloc_seq(prompt_tokens + max_new, eng.conn_id)
+        eng._pending_attach[req.rid] = req
+        b0 = eng.handoff_bytes
+        t0 = time.perf_counter()
+        eng._handoff(req)
+        samples.append(time.perf_counter() - t0)
+        sizes.add(eng.handoff_bytes - b0)
+        with eng._decode_lock:
+            eng.active.remove(req)
+        eng.pool.complete_and_release(req.seal_idxs, eng.client_pid, batched=False)
+        eng.pool.free_seq(req.pages)
+    if sizes != {handoff_bytes_for(len(req.pages))}:
+        fail(f"handoff sizes {sizes}, expected {handoff_bytes_for(len(req.pages))}")
+    return 1e6 * float(np.median(samples)), sizes.pop()
+
+
+def phase_rpc(cfg, model, prompts, submits, phase3_streams, phase3_step_ms, max_new, card):
+    """The decode service over the shared-memory ring at full width: 8
+    threaded client streams, 3 submits whose handoffs cross the ring, a
+    cross-pod ``attach_remote`` through the fallback link, and the times."""
+    import repro_torch.serving.kv_pool as kv_pool
+    from repro_torch.core.fallback import COMPLETION_WORD_BYTES
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.scope_copy import gather_pages, scatter_pages
+    from repro_torch.serving import DecodeService, PagedKVPool, PoolConfig, PoolPages, \
+        ServeEngine, prefill_kv
+
+    dev, L = model.device, cfg.num_layers
+    counters = (paged_attention, flash_prefill_cuda, gather_pages, scatter_pages)
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def read(steps0):
+        got = {"paged_attention": paged_attention.launches,
+               "flash_prefill": flash_prefill_cuda.launches,
+               "gather_pages": gather_pages.launches,
+               "scatter_pages": scatter_pages.launches,
+               "decode_steps": eng.decode_steps - steps0}
+        if got["paged_attention"] != L * got["decode_steps"]:
+            fail(f"paged_attention launched {got['paged_attention']} times, expected "
+                 f"{L} x {got['decode_steps']} decode steps")
+        return got
+
+    pc = PoolConfig(num_pages=512, page_tokens=16, max_pages_per_seq=64)
+    eng = ServeEngine(cfg, model, pc, max_active=8, serve_threaded=True, device=dev)
+    thread = eng.serve_loop._thread
+    free0 = eng.pool.heap.free_pages()
+    info, launches = {}, {}
+    try:
+        # 1. eight client threads stream phase 3's prompts over the ring;
+        # the server thread prefills (K3) and steps the batch (K1). Twice:
+        # clients on the default policy (spinning on the GIL), then clients
+        # polling with 200 µs naps (benchmarks/serve.py's client policy)
+        step_log = []
+        step_batch = eng.scheduler.step_batch
+
+        def logged_step():
+            t0 = time.perf_counter()
+            b = step_batch()
+            step_log.append((t0, time.perf_counter(), b))
+            return b
+
+        eng.scheduler.step_batch = logged_step
+        info["streams"] = {}
+        for run, (pid0, client_sleep_us) in (("spinning_clients", (30, None)),
+                                             ("polling_200us_clients", (40, 200.0))):
+            step_log.clear()
+            zero()
+            steps0 = eng.decode_steps
+            sync(dev)
+            t0 = time.perf_counter()
+            outs = stream_clients(eng, prompts, max_new, pid0, client_sleep_us)
+            sync(dev)
+            t_streams = time.perf_counter() - t0
+            launches[run] = got = read(steps0)
+            if got["flash_prefill"] != L * len(prompts):
+                fail(f"streams: flash_prefill launched {got['flash_prefill']} times, "
+                     f"expected {L} x {len(prompts)} prefills")
+            if eng.oob_events:
+                fail(f"{eng.oob_events} sandbox violations over the ring")
+            differ = []
+            for n, (prompt, a, b) in enumerate(zip(prompts, phase3_streams, outs)):
+                if a == b:
+                    continue
+                k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+                if k is None or not near_tie(model, prompt, a[:k]):
+                    fail(f"stream {n} over the ring differs from phase 3's at step {k} "
+                         f"without a near-tie: {b} vs {a}")
+                differ.append({"stream": n, "step": k})
+            full = [(t0, t1) for t0, t1, b in step_log if b == len(prompts)]
+            if not full:
+                fail(f"no decode step ran all {len(prompts)} streams together")
+            info["streams"][run] = {
+                "wall_s": t_streams, "decode_steps": got["decode_steps"],
+                "steps_at_b8": len(full), "near_tie_divergences": differ,
+                # wall per batched step over the B=8 stretch: the ring's chunk
+                # traffic and the client threads' pulls included, as phase 3's
+                # in-process quotient includes its pulls
+                "decode_step_ms_b8": 1e3 * (full[-1][1] - full[0][0]) / len(full),
+                "step_batch_ms_median_b8": 1e3 * float(np.median([b - a for a, b in full])),
+            }
+        del eng.scheduler.step_batch
+
+        # 2. three submits: prefill on this thread, ``stub.attach`` crosses
+        # to the serving thread, batched decode here
+        per_req = []
+        handoff = eng._handoff
+
+        def measured(req):
+            b0 = eng.handoff_bytes
+            handoff(req)
+            per_req.append((len(req.prompt), len(req.pages), eng.handoff_bytes - b0))
+
+        eng._handoff = measured
+        zero()
+        steps0 = eng.decode_steps
+        rids = [eng.submit(p, max_new) for p in submits]
+        eng.run_until_drained(timeout=600)
+        launches["submits"] = got = read(steps0)
+        del eng._handoff
+        if got["flash_prefill"] != L * len(submits):
+            fail(f"submits: flash_prefill launched {got['flash_prefill']} times, "
+                 f"expected {L} x {len(submits)}")
+        if any(len(eng.result(r)) != max_new for r in rids):
+            fail("a submitted request came back short")
+        if any(b != handoff_bytes_for(n) or b >= 200 for _, n, b in per_req):
+            fail(f"handoffs (prompt tokens, pages, bytes): {per_req}")
+        kv_per_token = 2 * L * cfg.num_kv_heads * cfg.head_dim * 2
+        info["submits"] = [{"prompt_tokens": t, "pages": n, "handoff_bytes": b,
+                            "kv_bytes": t * kv_per_token, "ratio": t * kv_per_token / b}
+                           for t, n, b in per_req]
+
+        # 3. handoff times: threaded, then inline once the thread stops
+        us_threaded, hb = time_handoffs(eng, 50)
+        eng.shutdown()
+        if thread.is_alive():
+            fail("the serving thread is still alive after shutdown()")
+        us_inline, _ = time_handoffs(eng, 50)
+        info["handoff_us"] = {"threaded": us_threaded, "inline": us_inline,
+                              "bytes_33_pages": hb}
+
+        # 4. attach_remote of one prompt in pod (pointer) and from pod
+        # ``ppod`` (fallback link, one bulk page migration); the cross-pod
+        # round runs twice: timed on the host clock, then under
+        # torch.profiler for the K2 kernels' device time
+        from torch.profiler import ProfilerActivity, profile
+
+        prompt = prompts[0]
+        src = PagedKVPool(eng.orch, cfg, pc, 21, pod="ppod", device=dev)
+        far = eng.router.stub(eng.endpoint_name, DecodeService, pid=21, pod="ppod")
+        if far.connection.transport != "fallback":
+            fail(f"cross-pod stub rode {far.connection.transport!r}, not the fallback link")
+        link = far.connection.target.link
+        put_deltas = []
+        put_bytes = link.put_bytes
+
+        def put(nbytes, to):
+            b0 = link.bytes_moved
+            put_bytes(nbytes, to)
+            put_deltas.append(link.bytes_moved - b0)
+
+        link.put_bytes = put
+        rounds = (("same_pod", eng.pool, eng.stub, eng.conn_id),
+                  ("cross_pod", src, far, 21), ("cross_pod_profiled", src, far, 21))
+        tokens, moved, t_handoff, k2_launches = {}, {}, {}, {}
+        zero()
+        steps0 = eng.decode_steps
+        link0 = link.bytes_moved
+        try:
+            for rid, (where, pool, stub, owner) in enumerate(rounds, start=9000):
+                pages = pool.alloc_seq(len(prompt) + max_new, owner)
+                toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+                logits, k, v = prefill_kv(model, toks)
+                pool.write_prefill(k[:, 0], v[:, 0], pages, len(prompt))
+                first = int(logits[0].argmax())
+                pp = PoolPages(pool, pages)
+                g0, s0 = gather_pages.launches, scatter_pages.launches
+                sync(dev)
+                if where == "cross_pod_profiled":
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        stub.attach_remote(rid, prompt, first, max_new, pp,
+                                           timeout=120.0, inline=True)
+                        sync(dev)
+                else:
+                    t0 = time.perf_counter()
+                    stub.attach_remote(rid, prompt, first, max_new, pp, timeout=120.0,
+                                       inline=True)
+                    sync(dev)
+                    t_handoff[where] = time.perf_counter() - t0
+                k2_launches[where] = (gather_pages.launches - g0,
+                                      scatter_pages.launches - s0)
+                moved[where] = (pp.last_moved_bytes, len(pages))
+                eng.run_until_drained(timeout=600)
+                tokens[where] = eng.result(rid)
+                if pool is src:
+                    src.free_seq(pages)
+        finally:
+            del link.put_bytes
+        launches["attach_remote"] = got = read(steps0)
+        if k2_launches != {"same_pod": (0, 0), "cross_pod": (2, 2),
+                           "cross_pod_profiled": (2, 2)}:
+            fail(f"gather/scatter launches by round {k2_launches}, expected 2 + 2 "
+                 f"a cross-pod transfer and none in pod")
+        if got["flash_prefill"] != len(rounds) * L:
+            fail(f"attach_remote: flash_prefill launched {got['flash_prefill']} times")
+        n_moved, n_pages = moved["cross_pod"]
+        want = n_pages * src.page_bytes
+        if moved["same_pod"][0] != 0 or moved["cross_pod_profiled"][0] != want or not (
+                n_moved == want and src.byref_bytes_out == eng.pool.byref_bytes_in
+                == 2 * want):
+            fail(f"byref bytes: moved {moved}, want {want} a transfer, out "
+                 f"{src.byref_bytes_out}, in {eng.pool.byref_bytes_in}")
+        if put_deltas != [want + COMPLETION_WORD_BYTES] * 2 or link.n_puts != 2:
+            fail(f"the link's puts moved {put_deltas} bytes, expected one of "
+                 f"{want} + {COMPLETION_WORD_BYTES} a transfer")
+        if not tokens["cross_pod"] == tokens["cross_pod_profiled"] == tokens["same_pod"]:
+            fail(f"migrated KV decodes differently: {tokens}")
+        k2 = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+              if "pages_kernel" in e.key and e.self_device_time_total > 0]
+        k2_ms = sum(t for _, t in k2) if k2 else None
+        info["cross_pod"] = {
+            "pages": n_pages, "moved_bytes": n_moved,
+            "link_bytes_two_rounds": link.bytes_moved - link0,
+            "handoff_ms": 1e3 * t_handoff["cross_pod"], "k2_ms": k2_ms,
+            "k2_kernels": k2,
+            "host_ms": (1e3 * t_handoff["cross_pod"] - k2_ms) if k2_ms else None,
+            "same_pod_handoff_ms": 1e3 * t_handoff["same_pod"],
+        }
+        if eng.pool.heap.free_pages() != free0 or eng.pool.stats()["sealed_pages"]:
+            fail(f"pages or seals leaked over the ring: {eng.pool.stats()}")
+    finally:
+        eng.shutdown()
+    if thread.is_alive():
+        fail("the serving thread is still alive after shutdown()")
+    info["launches"] = launches
+    h, c = info["handoff_us"], info["cross_pod"]
+    for run, st in info["streams"].items():
+        got = launches[run]
+        log(f"phase 16 RPC plane on {card} ({run}): 8 client threads streamed "
+            f"{len(prompts)} x {max_new} tokens over the ring in {st['decode_steps']} decode "
+            f"steps ({st['steps_at_b8']} at B=8), paged_attention {got['paged_attention']} = "
+            f"{L} x {st['decode_steps']}, flash_prefill {got['flash_prefill']} = {L} x "
+            f"{len(prompts)}, oob 0; {len(st['near_tie_divergences'])} streams differ from "
+            f"phase 3, each at a near-tie; threaded decode step {st['decode_step_ms_b8']:.2f} "
+            f"ms at B=8 (step_batch alone {st['step_batch_ms_median_b8']:.2f} ms) vs phase "
+            f"3's {phase3_step_ms:.2f} ms in process")
+    log(f"phase 16 handoffs on {card}: 3 submits of "
+        f"{[d['prompt_tokens'] for d in info['submits']]} tokens carried "
+        f"{[d['handoff_bytes'] for d in info['submits']]} bytes for "
+        f"{[d['kv_bytes'] for d in info['submits']]} bytes of KV (ratios "
+        f"{[round(d['ratio']) for d in info['submits']]}); a 33-page handoff "
+        f"({h['bytes_33_pages']} B) takes {h['inline']:.1f} µs inline and "
+        f"{h['threaded']:.1f} µs threaded (median of 50); all pages and seals back, "
+        f"serving thread stopped")
+    k2_text = "K2 not in the profile" if c["k2_ms"] is None else (
+        f"K2 {c['k2_ms']:.4f} ms of device time + host {c['host_ms']:.2f} ms")
+    log(f"phase 16 cross-pod attach_remote on {card}: {c['pages']} pages, "
+        f"{c['moved_bytes']} bytes in 2 gathers + 2 scatters a transfer, one put of "
+        f"{c['moved_bytes']} + {COMPLETION_WORD_BYTES} bytes a transfer on the link; "
+        f"handoff {c['handoff_ms']:.2f} ms = {k2_text} (same pod "
+        f"{c['same_pod_handoff_ms']:.2f} ms); tokens equal the same-pod generation exactly")
+    return info
+
+
 def _kernel_name(mangled: str) -> str:
     """'..25flash_prefill_bf16_kernelILi256EE..' → 'flash_prefill_bf16_kernel<256>':
     the first length-prefixed identifier that ends in ``_kernel``."""
@@ -1251,7 +1594,15 @@ def main() -> int:
     eng, outputs, serve = phase_serve(cfg, model, prompts, extra, MAX_NEW)
     dense = phase_dense(model, prompts + extra, outputs, MAX_NEW)
     prof = phase_profile(eng, prompts, MAX_NEW)
-    del eng, model
+    del eng
+    torch.cuda.empty_cache()
+    # phase 16 runs here, on phase 3's model and prompts; its submits are
+    # short enough (at most 8 pages) for a handoff under 200 bytes
+    submits = [np.random.default_rng(16).integers(1, cfg.vocab_size, size=n).tolist()
+               for n in (16, 64, 112)]
+    rpc = phase_rpc(cfg, model, prompts, submits, outputs[: len(prompts)],
+                    serve["decode_step_ms_b8"], MAX_NEW, card)
+    del model
     torch.cuda.empty_cache()
     src_pool, src_pages, transfer = phase_transfer(cfg, gen)
     times = phase_times(gen, main_lens, src_pool, src_pages, card)
@@ -1307,9 +1658,13 @@ def main() -> int:
         "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                           "src/repro/kernels/flash_prefill/kernel.py:84", g_serve["launches"]),
     }
+    # launches on the RPC plane's path (phase 16), summed over its parts
+    rpc_launches = {name: sum(part.get(name, 0) for part in rpc["launches"].values())
+                    for name in sources}
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
-        "launches": launches, "max_abs_err": errs[name],
+        "launches": launches, "launches_rpc": rpc_launches[name],
+        "max_abs_err": errs[name],
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
         "library_ms": times[name]["library_ms"],
@@ -1320,7 +1675,8 @@ def main() -> int:
               "profile": prof, "transfer": transfer, "times": times,
               "ssd_kernel": ssd, "mamba_serve": m_serve, "mamba_teacher_forced": m_tf,
               "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,
-              "gemma_teacher_forced": g_tf, "gemma_times": g_times, "kernels": kernels}
+              "gemma_teacher_forced": g_tf, "gemma_times": g_times, "rpc": rpc,
+              "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -1,9 +1,10 @@
 """SharedHeap — the RPCool shared-memory heap (§4.1, §5.1).
 
-A heap is a fixed array of fixed-size pages. On the GPU it is the
-resident device pool (the paged KV cache) whose page layout is identical
-for every process, plus this host-side byte mirror that holds the seal
-descriptor ring.
+A heap is a fixed array of fixed-size pages. It stands for a CXL region:
+a channel's heap holds the descriptor ring, the argument scopes and the
+reply graphs in its host bytes; the KV pool's heap is the page table of
+the device pool (the paged KV cache), and its host bytes hold only the
+seal descriptor ring.
 
 Page metadata kept per page:
 
@@ -11,9 +12,13 @@ Page metadata kept per page:
 * ``owner``      connection id of the allocator (0 == unowned/daemon)
 * ``perm``       permission word: bit SEALED ⇒ read-only for the sealing
                  process (the paper's PTE write-protect).
+* ``key``        MPK protection-key analogue assigned by the sandbox
+                 manager.
 
 Permission changes bump ``perm_epoch`` — the analogue of a TLB shootdown;
-the device mirror of ``perm`` is re-pushed only after a bump.
+the device mirror of ``perm`` is re-pushed only after a bump. Bytes are
+read and written through checked loads and stores (``read``/``write``):
+the RPC plane's rings, scopes and argument graphs live in ``buf``.
 
 The allocator is a first-fit extent allocator over pages, identical to
 the reference package's, so both hand out the same page ids.
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from . import addr as gaddr
-from .errors import AllocationError, InvalidPointer
+from .errors import AllocationError, InvalidPointer, SealedPageError
 
 # page state
 FREE = 0
@@ -66,12 +71,16 @@ class SharedHeap:
         # The byte space (zero pages are not committed until touched, so
         # a KV-sized page costs host memory only where descriptors live).
         self.buf = np.zeros(num_pages * page_size, dtype=np.uint8)
+        # 'B'-format view of the byte space: slice-assigning bytes into it
+        # is one memcpy
+        self._bytes = self.buf.data
 
         self.state = np.full(num_pages, FREE, dtype=np.uint8)
         self.owner = np.zeros(num_pages, dtype=np.int32)
         self.perm = np.zeros(num_pages, dtype=np.uint8)
         # Which process a seal protects against (the sender); 0 = none.
         self.seal_holder = np.zeros(num_pages, dtype=np.int64)
+        self.key = np.zeros(num_pages, dtype=np.int16)  # MPK key per page
 
         self.perm_epoch = 0
 
@@ -84,6 +93,7 @@ class SharedHeap:
         self._device = None
         self._device_perm = None
         self._device_dirty = False
+        self._device_epoch = -1   # perm_epoch of the installed mirror
 
     # ------------------------------------------------------------------
     # allocation
@@ -121,6 +131,9 @@ class SharedHeap:
             self.owner[start : start + count] = 0
             self.perm[start : start + count] = 0
             self.seal_holder[start : start + count] = 0
+            # unmap drops the MPK key: a cached sandbox binding over these
+            # pages is void from here, even if the range is reallocated
+            self.key[start : start + count] = 0
             self._insert_free(Extent(start, count))
 
     def _insert_free(self, ext: Extent) -> None:
@@ -173,28 +186,139 @@ class SharedHeap:
             self._bump_epoch()
 
     def _bump_epoch(self) -> None:
-        self.perm_epoch += 1
-        self._device_dirty = True
+        with self._lock:
+            self.perm_epoch += 1
+            self._device_dirty = True
+
+    # ------------------------------------------------------------------
+    # byte access (checked loads/stores — what MMU+MPK do in hardware)
+    # ------------------------------------------------------------------
+    def _check_addr(self, a: int, nbytes: int) -> Tuple[int, int]:
+        if gaddr.is_null(a):
+            raise InvalidPointer("NULL dereference")
+        if gaddr.heap_of(a) != self.heap_id:
+            raise InvalidPointer(
+                f"addr heap {gaddr.heap_of(a)} != {self.heap_id} ({self.name})"
+            )
+        off = gaddr.linear(a, self.page_size)
+        if off + nbytes > self.num_pages * self.page_size:
+            raise InvalidPointer(f"addr+{nbytes} past end of {self.name}")
+        return off, off + nbytes
+
+    @staticmethod
+    def _payload_nbytes(data) -> int:
+        if isinstance(data, (np.ndarray, memoryview)):
+            return data.nbytes
+        return len(data)
+
+    def _store(self, lo: int, hi: int, data) -> None:
+        """Copy ``data`` into heap bytes with one memcpy."""
+        if isinstance(data, np.ndarray):
+            if data.dtype != np.uint8 or data.ndim != 1:
+                data = np.ascontiguousarray(data).reshape(-1).view(np.uint8)
+            self.buf[lo:hi] = data
+        elif isinstance(data, memoryview):
+            if data.format != "B" or data.ndim != 1:
+                try:
+                    data = data.cast("B")
+                except TypeError:  # non-contiguous: flattening copy
+                    data = bytes(data)
+            self._bytes[lo:hi] = data
+        else:  # bytes | bytearray
+            self._bytes[lo:hi] = data
+
+    def write(self, a: int,
+              data: bytes | bytearray | memoryview | np.ndarray,
+              pid: int = 0) -> None:
+        lo, hi = self._check_addr(a, self._payload_nbytes(data))
+        p0, p1 = lo // self.page_size, (hi - 1) // self.page_size + 1
+        if p1 - p0 == 1:  # single-page access: scalar checks
+            if self.state[p0] == FREE:
+                raise InvalidPointer(f"write to freed page in {self.name}")
+            if pid and (self.perm[p0] & PERM_SEALED) and \
+                    self.seal_holder[p0] == pid:
+                raise SealedPageError(
+                    f"pid {pid} writing sealed page in {self.name} "
+                    f"(RPC in flight — §4.5)"
+                )
+        else:
+            sl = slice(p0, p1)
+            if np.any(self.state[sl] == FREE):
+                raise InvalidPointer(f"write to freed page in {self.name}")
+            if pid and np.any(
+                (self.perm[sl] & PERM_SEALED != 0)
+                & (self.seal_holder[sl] == pid)
+            ):
+                raise SealedPageError(
+                    f"pid {pid} writing sealed page in {self.name} "
+                    f"(RPC in flight — §4.5)"
+                )
+        self._store(lo, hi, data)
+
+    def read(self, a: int, nbytes: int) -> np.ndarray:
+        lo, hi = self._check_addr(a, nbytes)
+        p0, p1 = lo // self.page_size, (hi - 1) // self.page_size + 1
+        if p1 - p0 == 1:
+            if self.state[p0] == FREE:
+                raise InvalidPointer(f"read of freed page in {self.name}")
+        elif np.any(self.state[p0:p1] == FREE):
+            raise InvalidPointer(f"read of freed page in {self.name}")
+        return self.buf[lo:hi]
+
+    def write_fast(self, a: int,
+                   data: bytes | bytearray | memoryview | np.ndarray) -> None:
+        """Bounds-only write for freshly allocated private scopes: never
+        use on pages that may be sealed or foreign."""
+        lo = gaddr.linear(a, self.page_size)
+        hi = lo + self._payload_nbytes(data)
+        if hi > self.num_pages * self.page_size:
+            raise InvalidPointer(f"write past end of {self.name}")
+        self._store(lo, hi, data)
+
+    def addr_of_page(self, page: int, offset: int = 0) -> int:
+        return gaddr.pack(self.heap_id, page, offset)
 
     # ------------------------------------------------------------------
     # device mirror (perm bits consumed by the sandboxed kernel)
     # ------------------------------------------------------------------
     def attach_device_perm(self, device: torch.device) -> None:
         """Mirror the perm word, widened to int32, on ``device``."""
-        self._device = torch.device(device)
+        with self._lock:
+            self._device = torch.device(device)
+            self._device_perm = None
+            self._device_epoch = -1
         self._sync_device()
 
-    def _sync_device(self) -> None:
-        self._device_perm = torch.from_numpy(
-            self.perm.astype(np.int32)).to(self._device)
-        self._device_dirty = False
+    def _sync_device(self) -> torch.Tensor:
+        """Re-push the mirror from a snapshot of ``perm``; returns the
+        installed mirror. The flag is cleared only if no epoch bump landed
+        since the snapshot: a bump from another thread during the upload
+        keeps the mirror dirty, so the next ``device_perm()`` pushes it.
+        A snapshot older than the installed mirror is dropped, so a slow
+        upload cannot overwrite a newer one that finished first."""
+        with self._lock:
+            perm = self.perm.astype(np.int32)
+            epoch = self.perm_epoch
+        mirror = self._upload(perm)
+        with self._lock:
+            if epoch > self._device_epoch:
+                self._device_perm = mirror
+                self._device_epoch = epoch
+            if self.perm_epoch == self._device_epoch:
+                self._device_dirty = False
+            return self._device_perm
+
+    def _upload(self, perm: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(perm).to(self._device)
 
     def device_perm(self) -> torch.Tensor:
-        if self._device is None:
-            raise InvalidPointer(f"{self.name}: no device perm mirror attached")
-        if self._device_perm is None or self._device_dirty:
-            self._sync_device()
-        return self._device_perm
+        with self._lock:
+            if self._device is None:
+                raise InvalidPointer(
+                    f"{self.name}: no device perm mirror attached")
+            if self._device_perm is not None and not self._device_dirty:
+                return self._device_perm
+        return self._sync_device()
 
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, int]:

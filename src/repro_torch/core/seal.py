@@ -2,8 +2,9 @@
 
 Implements the Fig. 8 protocol:
 
-  1. sender ``seal(range)``            → descriptor written (2), pages
+  1. sender ``seal(scope)``            → descriptor written (2), pages
                                           write-protected for sender (3)
+  4. receiver ``is_sealed(idx)``       → verifies the descriptor
   6. receiver ``mark_complete(idx)``   → flips the descriptor state
   7. sender ``release(idx)``           → verifies completion (8) and
                                           restores permissions (9)
@@ -19,12 +20,13 @@ with zero epoch bumps: the pages never lost their write protection.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 from .errors import SealViolation
 from .heap import SharedHeap
+from .scope import Scope
 
 # descriptor states
 S_EMPTY = 0
@@ -43,10 +45,12 @@ SEAL_DTYPE = np.dtype([
 ])
 SEAL_DESC_BYTES = SEAL_DTYPE.itemsize  # 32
 
-RangeLike = Tuple[int, int]
+RangeLike = Union[Scope, Tuple[int, int]]
 
 
 def _as_range(region: RangeLike) -> Tuple[int, int]:
+    if isinstance(region, Scope):
+        return region.page_range()
     start, count = region
     return int(start), int(count)
 
@@ -77,6 +81,9 @@ class SealManager:
         self._reusable: Dict[Tuple[int, int, int], list] = {}
         # idx → live pending entry: rejects re-releasing a queued seal.
         self._queued: Dict[int, list] = {}
+        # flush generation: anything queued in generation g is released
+        # once flush_gen > g (scope pools test release status in O(1))
+        self.flush_gen = 0
 
     # -- descriptor ring I/O ----------------------------------------------
     def _read_desc(self, idx: int) -> Tuple[int, int, int, int, int]:
@@ -157,6 +164,7 @@ class SealManager:
         self._queued.clear()
         self._pending_live = 0
         self._pending_dead = 0
+        self.flush_gen += 1
 
     def _check_release(self, idx, seq, h, holder, state) -> None:
         if seq != idx or state == S_EMPTY:
@@ -181,9 +189,29 @@ class SealManager:
             )
 
     # -- receiver side ----------------------------------------------------
+    def is_sealed(self, idx: int, region: Optional[RangeLike] = None) -> bool:
+        """Fig. 8 step 4. Optionally checks the seal covers the expected
+        region — a smaller seal would let the sender mutate the tail."""
+        seq, start, count, _h, state = self._read_desc(idx)
+        if seq != idx or state != S_SEALED:
+            return False
+        if region is not None:
+            want_start, want_count = _as_range(region)
+            if not (start <= want_start
+                    and want_start + want_count <= start + count):
+                return False
+        return True
+
     def mark_complete(self, idx: int) -> None:
         """Fig. 8 step 6 — receiver-only write to the descriptor."""
         seq, start, count, h, state = self._read_desc(idx)
         if seq != idx or state != S_SEALED:
             raise SealViolation(f"completing non-sealed descriptor {idx}")
         self._state[idx % self.capacity] = S_COMPLETE
+
+    # -- introspection ------------------------------------------------------
+    def pending_releases(self) -> int:
+        return self._pending_live
+
+    def state_of(self, idx: int) -> int:
+        return int(self._state[idx % self.capacity])

@@ -1,30 +1,36 @@
-"""Serving engine: continuous batching over the RPCool KV pool.
+"""Serving engine: continuous batching with an RPCool-disaggregated
+prefill → decode handoff.
 
 Roles (paper ↔ engine):
-  prefill side: allocates pool pages (its lease), runs prefill, writes KV
-      into the pages and **seals** them, then hands the request to the
-      decode side by pointer set — the block table, nothing copied.
-  decode side: adopts the request into the active set, and thereafter
+  prefill worker = RPC *client*: allocates pool pages (its lease), runs
+      prefill, writes KV into the pages, **seals** them, and calls
+      ``decode.attach`` through a service stub over the shared-memory
+      descriptor ring — the argument is the pointer set (rid, prompt
+      length, page ids) marshalled once into a sealed scope; no KV is
+      copied.
+  decode worker = RPC *server* (``DecodeService``): verifies the seal,
+      adopts the request into the active set, and thereafter
       dereferences the block table in the paged-attention kernel under
-      the connection's sandbox bitmap and the seal bits.
-  orchestrator: leases + page quota on the pool.
+      the connection's sandbox bitmap and the seal bits. It is served
+      inline on the caller's thread, or by a ``ServerLoop`` thread
+      (``serve_threaded=True``).
+  orchestrator = leases + page quota on the pool; the pod registry that
+      makes the router pick the CXL ring in pod and the fallback link
+      across pods (``decode.attach_remote`` with a ``PoolPages`` byref
+      argument migrates the KV once through the page-copy kernels).
 
 Two admission planes share the pool and the kernels:
 
   * the batched plane (``submit``/``step``): requests queue, ``_admit``
-    prefills + hands off by pointer set, ``_decode_batch`` steps them;
-  * the streaming plane (``generate_tokens``): every live stream is a
-    ``_StreamSlot`` inside the ``StreamScheduler``; *one* batched
+    prefills + hands off over ``stub.attach``, ``_decode_batch`` steps
+    them;
+  * the streaming plane (``decode.generate_stream``): every live stream
+    is a ``_StreamSlot`` inside the ``StreamScheduler``; *one* batched
     ``paged_decode_step`` per scheduler tick produces the next token for
-    every live stream. Streams admit, retire and cancel mid-batch;
-    admission sheds typed ``Overloaded`` when pages, quota, or slots run
-    out (§5.4).
-
-The RPC plane is not ported yet: ``_handoff`` seals the pages and then
-runs the decode service's adoption logic (``_attach``: rid-keyed pending
-table, typed ``ChannelError`` on an unknown or mismatched rid,
-``Overloaded`` when the active set is full) as an in-process call, where
-the reference invokes it over the shared-memory ring.
+    every live stream, and each token goes out on that stream's reply
+    chain. Streams admit, retire and cancel mid-batch; admission sheds
+    typed ``Overloaded`` (retry-after on the wire) when pages, quota, or
+    slots run out (§5.4).
 """
 
 from __future__ import annotations
@@ -38,13 +44,89 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..core.channel import RPC, BusyWaitPolicy, ServerLoop
 from ..core.errors import AllocationError, ChannelError, Overloaded
 from ..core.orchestrator import Orchestrator
+from ..core.router import ClusterRouter
+from ..core.service import method, service
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
 from ..models.model import Model
 from .kv_pool import POOL_RETRY_AFTER_S, PagedKVPool, PoolConfig
 from .paged_model import check_paged_compatible, paged_decode_step, prefill_kv
+
+# the raw fn ids the service methods are pinned to (the reference's wire
+# ids, so either package's raw-API clients call the same slots)
+FN_ATTACH = 100
+FN_ATTACH_REMOTE = 101
+
+
+@service(name="decode")
+class DecodeService:
+    """The decode worker's RPC surface: sealed + sandboxed methods that
+    adopt a prefilled request by pointer set (§4.5 handoff), driven
+    through a stub by *name*."""
+
+    def __init__(self, engine: "ServeEngine"):
+        self._engine = engine
+
+    @method(fn_id=FN_ATTACH, sealed=True, sandboxed=True, deadline=30.0)
+    def attach(self, ctx, rid, prompt_len, pages):
+        """Verify + adopt. Runs sandboxed over the argument scope — every
+        block-table dereference is bounds-checked (§4.3). Pending
+        handoffs are keyed by ``rid``; a stale or forged handoff raises a
+        typed ``ChannelError``, a full active set sheds ``Overloaded``."""
+        engine = self._engine
+        pages = list(pages.to_python())   # the block table — no KV copied
+        rid = int(rid)
+        with engine._decode_lock:
+            req = engine._pending_attach.pop(rid, None)
+            if req is None:
+                raise ChannelError(
+                    f"attach: no pending handoff for rid {rid}")
+            if req.pages != pages or len(req.prompt) != int(prompt_len):
+                raise ChannelError(
+                    f"attach: rid {rid} handoff mismatch "
+                    f"(pages/prompt_len disagree with the prefill record)")
+            if len(engine.active) >= engine.max_active:
+                # typed shed: the reply's ret word carries retry-after µs
+                engine._pending_attach[rid] = req
+                engine.shed_admits += 1
+                raise Overloaded("decode worker active set is full",
+                                 retry_after_s=POOL_RETRY_AFTER_S)
+            engine.active.append(req)
+        return 0
+
+    @method(fn_id=FN_ATTACH_REMOTE, byref=True, sealed=True,
+            sandboxed=True, deadline=30.0)
+    def attach_remote(self, ctx, rid, prompt, first_token, max_new, pages):
+        """Cross-pod prefill → decode handoff: ``pages`` is a *byref*
+        ``PoolPages`` argument the stub resolved before marshalling — in
+        pod the raw pointer set, across pods the destination page ids
+        after one bulk migration. The request is adopted fully specified
+        (prompt, first token, budget), so the remote prefill worker never
+        round-trips again."""
+        engine = self._engine
+        req = Request(int(rid), list(prompt.to_python()), int(max_new),
+                      pages=list(pages.to_python()))
+        req.out = [int(first_token)]
+        req.pos = len(req.prompt)
+        with engine._decode_lock:
+            # seal for the flight of the generation on the decode side —
+            # migrated pages were minted here and never sealed yet
+            req.seal_idxs = engine.pool.seal_seq(
+                req.pages, holder=engine.client_pid)
+            engine.active.append(req)
+        return 0
+
+    @method(streaming=True, deadline=120.0)
+    def generate_stream(self, ctx, prompt, max_new):
+        """Token-streaming decode: each token goes onto the reply chain
+        the moment its paged decode step completes. Concurrent calls are
+        continuously batched: one ``paged_decode_step`` per scheduler
+        tick advances every live stream."""
+        return self._engine.generate_tokens(list(prompt.to_python()),
+                                            int(max_new))
 
 
 @dataclass
@@ -215,7 +297,8 @@ class StreamScheduler:
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, model: Model, pool_cfg: PoolConfig,
                  max_active: int = 8, quota_pages: Optional[int] = None,
-                 device: DeviceLike = None):
+                 pod: str = "pod0",
+                 serve_threaded: bool = False, device: DeviceLike = None):
         check_paged_compatible(cfg)
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -225,26 +308,60 @@ class ServeEngine:
         self.model = model
 
         self.orch = Orchestrator()
-        self.client_pid = 11
+        self.client_pid, self.server_pid = 11, 12
         self.conn_id = self.client_pid  # pool pages owned by the client
         if quota_pages is not None:
             # §5.4 page quota: an admit past it sheds typed Overloaded
             self.orch.set_page_quota(self.conn_id, int(quota_pages))
         self.pool = PagedKVPool(self.orch, cfg, pool_cfg, self.client_pid,
-                                device=self.device)
+                                pod=pod, device=self.device)
+
+        # the handoff endpoint, published through the cluster router:
+        # prefill (client) and decode (server) share a pod, so the stub
+        # resolves to the zero-copy CXL ring. The channel's heap holds
+        # the ring, the argument scopes and the reply graphs — never KV.
+        self.router = ClusterRouter(self.orch)
+        self.endpoint_name = f"/{pod}/decode"
+        self.channel = RPC(self.orch, pid=self.server_pid).open(
+            self.endpoint_name, heap_pages=256)
+        self.service = DecodeService(self)
+        self.channel.serve(self.service)
+        # every generate_stream generator pulls from the one shared
+        # StreamScheduler: one chunk per stream per pump, so a sweep
+        # advances all live streams together — one batched decode step
+        # per pass
+        self.channel.stream_pump_burst = 1
+        self.router.register(self.endpoint_name, self.channel, pod=pod)
+        self.stub = self.router.stub(self.endpoint_name, DecodeService,
+                                     pid=self.client_pid, pod=pod)
+        self.conn = self.stub.connection
+        if self.conn.transport != "cxl":
+            raise ChannelError(
+                "prefill/decode pair must share a pod (got transport "
+                f"{self.conn.transport!r}); zero-copy KV handoff needs "
+                "the CXL ring")
+        # optionally serve the ring from a dedicated ServerLoop thread
+        # (the cluster deployment shape) instead of inline on the caller
+        self.serve_loop: Optional[ServerLoop] = None
+        if serve_threaded:
+            self.serve_loop = ServerLoop([self.channel],
+                                         BusyWaitPolicy(fixed_sleep_us=5.0))
+            self.serve_loop.run_in_thread()
 
         self.queue: List[Request] = []
         self.active: List[Request] = []
         self.finished: Dict[int, Request] = {}
         self.max_active = max_active
         self._next_rid = 1
-        # handoffs in flight, keyed by rid
+        # handoffs in flight, keyed by rid (concurrent prefill clients)
         self._pending_attach: Dict[int, Request] = {}
         # one reentrant lock serializes pool/batch state across the
-        # batched plane and the stream scheduler
+        # batched plane, the stream scheduler and the threaded handlers;
+        # it is never held across an RPC
         self._decode_lock = threading.RLock()
         self.scheduler = StreamScheduler(self)
         # metrics
+        self.handoff_bytes = 0
         self.decode_steps = 0
         self.oob_events = 0
         self.stream_steps = 0        # batched steps the scheduler ran
@@ -290,33 +407,28 @@ class ServeEngine:
         r = self.finished.get(rid)
         return r.out if r else None
 
-    # -- the handoff -----------------------------------------------------------
+    # -- the RPCool handoff ----------------------------------------------------
     def _handoff(self, req: Request) -> None:
-        """Prefill side: seal the KV pages for the flight, then hand the
-        block table to the decode side (in-process until the RPC plane
-        is ported)."""
-        req.seal_idxs = self.pool.seal_seq(req.pages, holder=self.client_pid)
-        self._attach(req.rid, len(req.prompt), list(req.pages))
+        """Prefill side: seal the KV pages, stub-invoke the block table.
 
-    def _attach(self, rid: int, prompt_len: int, pages: List[int]) -> int:
-        """Decode side: verify the handoff against the prefill record and
-        adopt the request. A stale or forged handoff raises a typed
-        ``ChannelError``; a full active set sheds ``Overloaded``."""
+        ``stub.attach`` is ``decode.attach`` on the wire: the argument
+        tuple (rid, prompt length, page ids) is marshalled once into a
+        pooled scope as a ``containers`` graph and travels as a single
+        GlobalAddr; the method's options (sealed, sandboxed, 30 s
+        deadline) come from the service declaration."""
+        # 1. seal the KV pages themselves (pool heap) for the flight;
+        # under the lock, as the serving thread seals and flushes the same
+        # SealManager, but not across the RPC
         with self._decode_lock:
-            req = self._pending_attach.pop(rid, None)
-            if req is None:
-                raise ChannelError(f"attach: no pending handoff for rid {rid}")
-            if req.pages != pages or len(req.prompt) != int(prompt_len):
-                raise ChannelError(
-                    f"attach: rid {rid} handoff mismatch "
-                    f"(pages/prompt_len disagree with the prefill record)")
-            if len(self.active) >= self.max_active:
-                self._pending_attach[rid] = req
-                self.shed_admits += 1
-                raise Overloaded("decode worker active set is full",
-                                 retry_after_s=POOL_RETRY_AFTER_S)
-            self.active.append(req)
-        return 0
+            req.seal_idxs = self.pool.seal_seq(req.pages,
+                                               holder=self.client_pid)
+        # 2. the RPC (argument scope sealed too, sandboxed server); with a
+        # serving thread the call crosses threads, else it runs inline
+        b0 = self.conn.marshal_bytes
+        self.stub.attach(req.rid, len(req.prompt), req.pages,
+                         timeout=30.0, inline=self.serve_loop is None)
+        # the marshalled pointers, never KV bytes
+        self.handoff_bytes += self.conn.marshal_bytes - b0
 
     # -- engine loop --------------------------------------------------------
     def _admit(self) -> int:
@@ -339,12 +451,13 @@ class ServeEngine:
                 # release any flight seals, hand the pages back, and reset
                 # the request so a retry starts clean
                 self._pending_attach.pop(req.rid, None)
-                if req.seal_idxs:
-                    self.pool.complete_and_release(
-                        req.seal_idxs, self.client_pid, batched=True)
-                    self.pool.seals.flush()
-                    req.seal_idxs = []
-                self.pool.free_seq(req.pages)
+                with self._decode_lock:
+                    if req.seal_idxs:
+                        self.pool.complete_and_release(
+                            req.seal_idxs, self.client_pid, batched=True)
+                        self.pool.seals.flush()
+                        req.seal_idxs = []
+                    self.pool.free_seq(req.pages)
                 req.pages = []
                 req.out = []
                 req.pos = 0
@@ -401,8 +514,8 @@ class ServeEngine:
         return worked
 
     def generate_tokens(self, prompt: List[int], max_new: int = 16):
-        """Streaming decode: prefill once, then yield each token as its
-        decode step completes. Concurrent calls share ONE batched
+        """Streaming decode behind ``decode.generate_stream``: prefill
+        once, then yield each token as its decode step completes. Concurrent calls share ONE batched
         ``paged_decode_step`` per scheduler tick (continuous batching).
         Admission runs here, eagerly, so it sheds typed ``Overloaded``
         at the call; the generator's ``finally`` releases seals + pages
@@ -429,3 +542,13 @@ class ServeEngine:
                 raise TimeoutError("engine did not drain")
             if not self.step():
                 time.sleep(0)   # nothing admissible yet: yield the GIL
+
+    def shutdown(self, timeout: float = 10.0) -> None:
+        """Stop the serving thread (if any) and join it; idempotent.
+        Raises if the thread is still alive after ``timeout``."""
+        loop, self.serve_loop = self.serve_loop, None
+        if loop is not None:
+            thread = loop._thread
+            loop.stop(timeout=timeout)
+            if thread is not None and thread.is_alive():
+                raise ChannelError("serving thread did not stop")

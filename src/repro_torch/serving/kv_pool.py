@@ -16,18 +16,23 @@ The pool is the device-resident instantiation of the paper's shared heap:
 ``k``/``v`` are ``(L, P, T, Hkv, D)`` bf16 tensors on the pool's device;
 the permission word, sandbox bitmap and descriptor reach the kernel as
 int32 tensors on the same device.
+
+``PoolPages`` is a page set passed *by reference* as an RPC argument: the
+stub resolves it against the route the call takes — the raw page ids in
+pod, one bulk page migration across pods (``transfer_pages_cross_pod``,
+charged to the fallback link).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.errors import AllocationError, Overloaded
+from ..core.errors import AllocationError, ChannelError, Overloaded
 from ..core.orchestrator import Orchestrator
 from ..core.seal import SealManager
 from ..device import DeviceLike, resolve_device
@@ -48,7 +53,7 @@ class PoolConfig:
 class PagedKVPool:
     def __init__(self, orch: Orchestrator, cfg: ModelConfig,
                  pool_cfg: PoolConfig, owner_pid: int,
-                 device: DeviceLike = None):
+                 pod: Optional[str] = None, device: DeviceLike = None):
         self.cfg = cfg
         self.pc = pool_cfg
         self.device = resolve_device(device)
@@ -70,7 +75,13 @@ class PagedKVPool:
         self.v = torch.zeros_like(self.k)
         self.owner_pid = owner_pid
         self.orch = orch
-        # bytes bulk-migrated into/out of this pool by cross-pod handoffs
+        self.pod = pod
+        if pod is not None:
+            # publish as the pod's KV pool: cross-pod byref arguments
+            # resolve their destination pages against this registry
+            orch.register_pool(pod, self)
+        # bytes bulk-migrated into/out of this pool by cross-pod byref
+        # handoffs (zero on the CXL route)
         self.byref_bytes_in = 0
         self.byref_bytes_out = 0
 
@@ -158,8 +169,8 @@ class PagedKVPool:
 
 
 def transfer_pages_cross_pod(src_pool: PagedKVPool, dst_pool: PagedKVPool,
-                             src_pages: List[int],
-                             dst_pages: List[int]) -> int:
+                             src_pages: List[int], dst_pages: List[int],
+                             link=None) -> int:
     """The fallback data plane (§4.7): when prefill and decode live in
     different pods, the block-table handoff degrades to gather(src pages)
     → wire → scatter(dst pages) for K and V. The destination pool is
@@ -169,7 +180,9 @@ def transfer_pages_cross_pod(src_pool: PagedKVPool, dst_pool: PagedKVPool,
     The reference gathers and scatters layer by layer; here each pool is
     a flat (L·P, W) view and one gather and one scatter move every layer's
     rows of a tensor, four launches a transfer. Each id is clamped to the
-    flat view, as the per-layer launches clamped theirs."""
+    flat view, as the per-layer launches clamped theirs. With ``link``
+    (the fallback transport's ``DSMLink``) the bulk is charged to the
+    link as one one-sided put with a completion word."""
     L, P = src_pool.k.shape[0], src_pool.k.shape[1]
 
     def flat_ids(pages, device):
@@ -194,4 +207,59 @@ def transfer_pages_cross_pod(src_pool: PagedKVPool, dst_pool: PagedKVPool,
         moved += wire.numel() * wire.element_size()
     src_pool.byref_bytes_out += moved
     dst_pool.byref_bytes_in += moved
+    if link is not None:
+        link.put_bytes(moved, to=1)
     return moved
+
+
+class PoolPages:
+    """A KV-pool page set passed *by reference* as an RPC argument (the
+    argument form behind ``@method(byref=True)``). The stub resolves it
+    per dispatch against the route the connection took:
+
+    * same pod (CXL ring): the raw page ids travel as the pointer set;
+      zero KV bytes move;
+    * cross pod (fallback link): destination pages are minted in the
+      target pod's registered pool and the KV migrates in ONE bulk
+      gather → wire → scatter transfer, then the *destination* ids
+      travel.
+
+    Either way the handler receives plain page ids in its own pod's
+    pool. ``last_moved_bytes`` records what the most recent resolution
+    copied (0 on the pointer route). The kernels dispatch on the pools'
+    device, so there is no backend argument."""
+
+    __slots__ = ("pool", "pages", "last_moved_bytes")
+
+    def __init__(self, pool: PagedKVPool, pages: List[int]):
+        self.pool = pool
+        self.pages = list(pages)
+        self.last_moved_bytes = 0
+
+    def __byref_resolve__(self, conn) -> List[int]:
+        if getattr(conn, "transport", None) in (None, "cxl"):
+            # shared coherence domain: pointer passing, nothing copied
+            self.last_moved_bytes = 0
+            return list(self.pages)
+        # a RoutedConnection wraps the live FallbackConnection
+        target = getattr(conn, "target", None) or conn
+        orch = self.pool.orch
+        pod = orch.pod_of(target.server_pid)
+        if pod is None:
+            raise ChannelError(
+                "cross-pod byref dispatch but the serving pid has no pod "
+                "assignment — cannot locate the destination pool")
+        dst_pool: PagedKVPool = orch.pool_of_pod(pod)
+        # mint the destination block table (owned by the decode pod's
+        # pool owner so its sandbox bitmap admits the kernel reads), then
+        # one bulk transfer for the whole page set
+        dst_pages = dst_pool.alloc_seq(
+            len(self.pages) * dst_pool.pc.page_tokens, dst_pool.owner_pid)
+        try:
+            self.last_moved_bytes = transfer_pages_cross_pod(
+                self.pool, dst_pool, self.pages, dst_pages,
+                link=target.link)
+        except BaseException:
+            dst_pool.free_seq(dst_pages)
+            raise
+        return dst_pages

@@ -250,6 +250,50 @@ def test_engine_on_card_serves_through_the_kernel(dev):
     assert eng.pool.stats()["sealed_pages"] == 0
 
 
+def test_threaded_engine_on_card_streams_over_the_ring(dev):
+    """The decode service on a ServerLoop thread: 4 client threads, each
+    with its own stub, stream over the ring on the card, token for token
+    the solo in-process streams; K1 and K3 launch L x steps and L x
+    prefills; ``shutdown()`` joins the serving thread."""
+    import threading
+
+    from repro_torch.serving import DecodeService
+
+    cfg = _card_config()
+    model = build_model(cfg).init(torch.Generator(dev).manual_seed(0), device=dev)
+    pc = PoolConfig(num_pages=64, page_tokens=8, max_pages_per_seq=8)
+    prompts = [list(range(1, 4 + 3 * i)) for i in range(4)]
+    solo = ServeEngine(cfg, model, pc, max_active=4, device=dev)
+    want = [list(solo.generate_tokens(p, 6)) for p in prompts]
+    eng = ServeEngine(cfg, model, pc, max_active=4, serve_threaded=True, device=dev)
+    thread = eng.serve_loop._thread
+    outs, errors = [None] * 4, []
+
+    def client(i):
+        try:
+            stub = eng.router.stub(eng.endpoint_name, DecodeService, pid=30 + i)
+            outs[i] = list(stub.generate_stream.stream(prompts[i], 6, timeout=120.0))
+        except Exception as e:   # surfaced below
+            errors.append((i, e))
+
+    n0, f0 = paged_attention.launches, flash_prefill_cuda.launches
+    threads = [threading.Thread(target=client, args=(i,), daemon=True) for i in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+            assert not t.is_alive()
+    finally:
+        eng.shutdown()
+    assert not thread.is_alive()
+    assert not errors, errors
+    assert outs == want
+    assert paged_attention.launches - n0 == cfg.num_layers * eng.decode_steps
+    assert flash_prefill_cuda.launches - f0 == cfg.num_layers * 4
+    assert eng.oob_events == 0 and eng.pool.stats()["sealed_pages"] == 0
+
+
 # -- K4: the SSD intra-chunk kernel ------------------------------------------
 def _ssd_inputs(B, S, H, P, N, dtype, seed=0, decay="strong"):
     """``strong``: mamba2's init (A = -linspace(1, 16), dt = softplus(N(0,1)

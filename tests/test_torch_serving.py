@@ -20,6 +20,7 @@ from repro.serving.kv_pool import transfer_pages_cross_pod as jax_transfer  # no
 from repro.serving.paged_model import paged_decode_step as jax_step  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import array_from_numpy  # noqa: E402
+from repro_torch.core.channel import E_EXCEPTION, RpcError  # noqa: E402
 from repro_torch.core.errors import ChannelError, Overloaded  # noqa: E402
 from repro_torch.core.orchestrator import Orchestrator  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -293,12 +294,36 @@ def test_cancel_frees_pages_and_seals_exactly_once(lm):
 
 
 def test_attach_rejects_unknown_or_mismatched_handoff(lm):
+    """decode.attach rejects an unknown rid ("no pending") and a forged
+    block table ("mismatch") with a typed ChannelError and adopts
+    nothing: called directly on the handler, and over the ring, where
+    the handler's error fails the RPC with E_EXCEPTION and the forged
+    handoff's pending record is consumed."""
     te = _torch_engine(lm)
     with pytest.raises(ChannelError, match="no pending"):
-        te._attach(99, 4, [1])
+        te.service.attach(None, 99, 4, _PageView([1]))
+    with pytest.raises(RpcError) as e:
+        te.stub.attach(99, 4, [1], inline=True)
+    assert e.value.status == E_EXCEPTION and te.active == []
     te.submit([1, 2, 3, 4], max_new=4)
     te._admit()
     req = te.active.pop()
     te._pending_attach[req.rid] = req
     with pytest.raises(ChannelError, match="mismatch"):
-        te._attach(req.rid, 4, req.pages + [0])
+        te.service.attach(None, req.rid, 4, _PageView(req.pages + [0]))
+    assert te.active == [] and req.rid not in te._pending_attach
+    te._pending_attach[req.rid] = req
+    with pytest.raises(RpcError) as e:
+        te.stub.attach(req.rid, 4, req.pages + [0], inline=True)
+    assert e.value.status == E_EXCEPTION and te.active == []
+    assert req.rid not in te._pending_attach
+
+
+class _PageView:
+    """The handler's view of a marshalled page list (``to_python``)."""
+
+    def __init__(self, pages):
+        self._pages = pages
+
+    def to_python(self):
+        return list(self._pages)
