@@ -69,8 +69,30 @@ before the result line is printed:
     migrates the KV in 2 gathers + 2 scatters charged to the fallback
     link, decoding the same tokens as the same-pod handoff; no page or
     seal left and the serving thread stopped;
+17. the paged-attention and flash-prefill kernels against their plain
+    versions at olmo-1b's layout (16/16 heads: at B=8 the 128 pairs fill
+    the card, so K1's cluster is one block, asserted) and qwen2-vl-7b's
+    (28/4: 7 query rows a KV head), bf16 and f32, K1 at the served
+    lengths with phase 2's sandbox cases, K3 at S=471 with and without a
+    softcap;
+18. olmo-1b at full width and depth (16 layers, non-parametric LayerNorm),
+    random weights from a seed, served as yi-9b in phases 3, 4 and 6: 8
+    streams and 3 submits through ``ServeEngine`` (K1 L x steps, K3 L x
+    prefills), the dense-cache chain, a cross-pod handoff between two
+    olmo pools (2 + 2 K2 launches, bitwise);
+19. qwen2-vl-7b at full width and depth (28 layers, M-RoPE, q/k/v
+    biases), the same traffic and checks; then ``Model.prefill`` with
+    Qwen2-VL's position triples for an image (text, a 16 x 24 patch grid
+    at one temporal position, text resuming after it): the positions path
+    runs and K3 does not, the logits are finite, and explicit 0..S-1
+    triples on the positions path give the K3 path's logits;
+20. times: K1 at both models' decode shapes and K3 at their prefill
+    shapes beside their bounds, plain versions and SDPA (each backend
+    alone), and a B=8 decode step of each under ``torch.profiler``
+    (printed with phases 18 and 19);
 
-then a ``{"kernels": [...]}`` line, the card line, and last
+then a ``{"kernels": [...]}`` line (each kernel's launches summed over
+every path, and by path), the card line, and last
 ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit (``nvcc``); imports nothing of
@@ -127,6 +149,8 @@ K3_CASES = [(1, 471, 32, 4, 128, 0, 0.0), (1, 471, 32, 4, 128, 0, 30.0),
             (2, 2000, 16, 8, 256, 0, 0.0), (2, 2000, 16, 8, 256, 1024, 0.0),
             (2, 1000, 8, 2, 64, 0, 0.0), (2, 2000, 16, 8, 256, 65, 0.0)]
 # timed at B=1, bf16: yi-9b's prefill, gemma3's global and local layers at 4,096
+# (Hq, Hkv) at head_dim 128 of the paged configurations added after yi-9b
+NEW_LAYOUTS = {"olmo-1b": (16, 16), "qwen2-vl-7b": (28, 4)}
 K3_TIMED = {"yi9b_S471": (1, 471, 32, 4, 128, 0), "gemma3_global_S4096": (1, 4096, 16, 8, 256, 0),
             "gemma3_local_S4096": (1, 4096, 16, 8, 256, 1024)}
 
@@ -270,28 +294,34 @@ def check_k1(args, tol, expect_oob=None):
     return (out.float() - ref_out.float()).abs().max().item()
 
 
-def k1_sandbox_case(gen, name, dtype):
+K1_SANDBOX_LAYOUT = dict(B=2, Hq=4, Hkv=2, D=64, P=32, T=16, MAXP=4)
+
+
+def k1_sandbox_case(gen, name, dtype, layout=K1_SANDBOX_LAYOUT):
     """The four sandbox cases of the reference's tests, plus rows with no
-    valid token; returns (args, expected oob)."""
-    args = k1_inputs(gen, B=2, Hq=4, Hkv=2, D=64, P=32, T=16, MAXP=4, dtype=dtype)
+    valid token, on rows 0 and 1 of ``layout``; returns (args, expected
+    oob)."""
+    args = k1_inputs(gen, dtype=dtype, **layout)
     bt, perm, bitmap = args[3], args[5], args[7]
+    B, P = bt.shape[0], perm.shape[0]
+    rest = [0] * (B - 2)
     if name == "wild_pointer":
         bt[0, 0] = 999
-        return args, [1, 0]
+        return args, [1, 0] + rest
     if name == "unsealed_page":
         perm[bt[1, 0]] = 0
-        return args, [0, 1]
+        return args, [0, 1] + rest
     if name == "sandbox_off":
         perm.zero_()
-        args[6] = torch.tensor([0, 32, 0], dtype=torch.int32, device="cuda")
-        return args, [0, 0]
+        args[6] = torch.tensor([0, P, 0], dtype=torch.int32, device="cuda")
+        return args, [0, 0] + rest
     if name == "foreign_bitmap":
         bitmap[bt[0, 0]] = 0
-        return args, [1, 0]
+        return args, [1, 0] + rest
     # no valid token: a zero-length row and a fully rejected row
-    args[4] = torch.tensor([0, 20], dtype=torch.int32, device="cuda")
+    args[4][:2] = torch.tensor([0, 20], dtype=torch.int32, device="cuda")
     bitmap[bt[1, :2].long()] = 0
-    return args, [0, 2]
+    return args, [0, 2] + rest
 
 
 K1_SANDBOX_CASES = ("wild_pointer", "unsealed_page", "sandbox_off", "foreign_bitmap",
@@ -382,7 +412,7 @@ def make_prompts(rng, n, vocab):
             for _ in range(n)]
 
 
-def phase_serve(cfg, model, prompts, extra, max_new):
+def phase_serve(cfg, model, prompts, extra, max_new, label="phase 3 main path"):
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
     from repro_torch.kernels.paged_attention import paged_attention
     from repro_torch.serving import PoolConfig, ServeEngine
@@ -439,7 +469,7 @@ def phase_serve(cfg, model, prompts, extra, max_new):
         "admit_8_prefills_s": t_admit, "decode_step_ms_b8": step_ms,
         "decode_tokens_per_s_b8": len(prompts) * stream_steps / t_decode,
     }
-    log(f"phase 3 main path: {len(prompts)} streams + {len(extra)} requests, "
+    log(f"{label}: {len(prompts)} streams + {len(extra)} requests, "
         f"{eng.decode_steps} decode steps, paged_attention launches {launches} "
         f"= {L} x {eng.decode_steps}, flash_prefill launches {k3_launches} = {L} x "
         f"{n_prefills} prefills, oob 0, all pages and seals returned; "
@@ -492,8 +522,8 @@ def profile_line(info) -> str:
             f"{[(k[:40], round(t, 3)) for k, t in info['top_kernels_ms_per_step']]}")
 
 
-def phase_profile(eng, prompts, max_new):
-    """Where a yi-9b decode step's time goes: batched steps at B=8."""
+def phase_profile(eng, prompts, max_new, label="phase 5 where a decode step goes"):
+    """Where a decode step's time goes: batched steps at B=8."""
     gens = [eng.generate_tokens(p, max_new) for p in prompts]
     for g in gens:
         next(g)                       # the prefill token; no step yet
@@ -505,13 +535,13 @@ def phase_profile(eng, prompts, max_new):
     info = profile_steps(step, eng.device, watch="paged_attention")
     for g in gens:
         g.close()
-    log(f"phase 5 where a decode step goes (B=8, {info['steps']} steps, then the "
+    log(f"{label} (B=8, {info['steps']} steps, then the "
         f"same under the profiler): {profile_line(info)}; paged_attention "
         f"{info['watch_ms_per_step']} ms per step")
     return info
 
 
-def phase_dense(model, prompts, outputs, max_new):
+def phase_dense(model, prompts, outputs, max_new, label="phase 4 dense-cache chain"):
     """The dense-cache chain on the same prompts; agreement up to the
     first mismatch, which must sit at a near-tie of the dense chain."""
     near_ties, agreed = [], 0
@@ -538,12 +568,12 @@ def phase_dense(model, prompts, outputs, max_new):
             fail(f"stream {n} diverges from the dense chain at step {first} "
                  f"with top-2 gap {gap:.4f} (no near-tie): {got} vs {seq}")
         near_ties.append({"stream": n, "step": first, "gap": gap})
-    log(f"phase 4 dense-cache chain: {agreed}/{len(prompts)} streams identical; "
+    log(f"{label}: {agreed}/{len(prompts)} streams identical; "
         f"near-tie divergences {near_ties}")
     return {"identical_streams": agreed, "near_ties": near_ties}
 
 
-def phase_transfer(cfg, gen):
+def phase_transfer(cfg, gen, label="phase 6 cross-pod handoff"):
     from repro_torch.core.orchestrator import Orchestrator
     from repro_torch.kernels.scope_copy import gather_pages, scatter_pages
     from repro_torch.serving import PagedKVPool, PoolConfig, transfer_pages_cross_pod
@@ -579,7 +609,7 @@ def phase_transfer(cfg, gen):
         rest[idx_d] = False
         if b[:, rest].abs().sum().item() != 0:
             fail("the transfer wrote outside the destination pages")
-    log(f"phase 6 cross-pod handoff: {n} pages x {L} layers x K,V = {moved} bytes, "
+    log(f"{label}: {n} pages x {L} layers x K,V = {moved} bytes, "
         f"bitwise equal, nothing written outside the destination pages; 2 gathers + 2 "
         f"scatters of {L * n} rows each in {1e3 * dt:.2f} ms")
     return src, sp, {"bytes": moved, "ms": 1e3 * dt, "launches": launches}
@@ -588,19 +618,15 @@ def phase_transfer(cfg, gen):
 # ---------------------------------------------------------------------------
 # phase 7: times
 # ---------------------------------------------------------------------------
-def phase_times(gen, main_lens, src_pool, src_pages, card):
+def k1_times(timer, args):
+    """K1 on ``args`` (bf16): its time, its plain version's, the fastest
+    SDPA backend's over the same KV gathered contiguous, host µs a call,
+    and its bound (the valid K and V read once, q read, out written)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    from repro_torch.kernels.scope_copy.kernel import gather_pages_cuda, scatter_pages_cuda
-    from repro_torch.kernels.scope_copy.ref import gather_pages_ref, scatter_pages_ref
 
-    timer = Timer()
-    out = {}
-
-    # K1 at the main path's shapes: B=8, MAXP=64, ragged lengths as served
-    args = k1_inputs(gen, lens=main_lens)
     q, kp, vp, bt, lens = args[:5]
     B, Hq, D = q.shape
     P, T, Hkv, _ = kp.shape
@@ -621,7 +647,7 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
                                                   enable_gqa=True)
     plain = paged_attention_ref(*args)[0].float()[:, :, None, :]
     backend, lib_ms, lib_err, every = sdpa_by_backend(timer, sdpa, plain)
-    out["paged_attention"] = {
+    return {
         "ms": timer.ms(lambda: paged_attention_cuda(*args)),
         "plain_ms": timer.ms(lambda: paged_attention_ref(*args)),
         "library_ms": lib_ms, "library_backend": f"SDPA {backend}",
@@ -631,6 +657,17 @@ def phase_times(gen, main_lens, src_pool, src_pages, card):
         "bound_ms": b_ms, "bound_by": b_by, "bytes": kv_bytes + io_bytes,
         "library_max_abs_err_vs_plain": lib_err,
     }
+
+
+def phase_times(gen, main_lens, src_pool, src_pages, card):
+    from repro_torch.kernels.scope_copy.kernel import gather_pages_cuda, scatter_pages_cuda
+    from repro_torch.kernels.scope_copy.ref import gather_pages_ref, scatter_pages_ref
+
+    timer = Timer()
+    out = {}
+
+    # K1 at the main path's shapes: B=8, MAXP=64, ragged lengths as served
+    out["paged_attention"] = k1_times(timer, k1_inputs(gen, lens=main_lens))
 
     # K2 at the transfer's shape: one launch over every layer's rows of the
     # flattened (L·P, W) pool, the ids as transfer_pages_cross_pod builds them
@@ -955,26 +992,31 @@ def k3_inputs(gen, B, S, Hq, Hkv, D, dtype):
             for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D))]
 
 
-def phase_flash_kernel(gen, card):
-    """K3 against its plain version at the main paths' shapes."""
+def check_k3(gen, case, dtype):
+    """K3 against its plain version at one (B, S, Hq, Hkv, D, window,
+    softcap) case; returns (the case's name, max |err|)."""
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
-    errs = {}
-    for B, S, Hq, Hkv, D, window, softcap in K3_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = k3_inputs(gen, B, S, Hq, Hkv, D, dtype)
-            got = flash_prefill_cuda(q, k, v, window=window, softcap=softcap)
-            torch.cuda.synchronize()
-            want = flash_prefill_ref(q, k, v, window=window, softcap=softcap)
-            name = f"B{B} S{S} {Hq}/{Hkv} D{D} w{window} cap{softcap:g} {str(dtype)[6:]}"
-            if not torch.isfinite(got.float()).all():
-                fail(f"flash_prefill produced a non-finite value ({name})")
-            err = (got.float() - want.float()).abs().max().item()
-            if not torch.allclose(got.float(), want.float(), **TOL_K3[dtype]):
-                fail(f"flash_prefill disagrees with its plain version ({name}): "
-                     f"max |err| {err:.3e}")
-            errs[name] = err
+    B, S, Hq, Hkv, D, window, softcap = case
+    q, k, v = k3_inputs(gen, B, S, Hq, Hkv, D, dtype)
+    got = flash_prefill_cuda(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    want = flash_prefill_ref(q, k, v, window=window, softcap=softcap)
+    name = f"B{B} S{S} {Hq}/{Hkv} D{D} w{window} cap{softcap:g} {str(dtype)[6:]}"
+    if not torch.isfinite(got.float()).all():
+        fail(f"flash_prefill produced a non-finite value ({name})")
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), **TOL_K3[dtype]):
+        fail(f"flash_prefill disagrees with its plain version ({name}): "
+             f"max |err| {err:.3e}")
+    return name, err
+
+
+def phase_flash_kernel(gen, card):
+    """K3 against its plain version at the main paths' shapes."""
+    errs = dict(check_k3(gen, case, dtype) for case in K3_CASES
+                for dtype in (torch.bfloat16, torch.float32))
     log(f"phase 12 flash_prefill vs plain on {card} (bf16 at atol "
         f"{TOL_K1_BF16['atol']:g}/rtol {TOL_K1_BF16['rtol']:g}, f32 at "
         f"{TOL_F32['atol']:g}/{TOL_F32['rtol']:g}): max |err| "
@@ -1122,42 +1164,51 @@ def k3_pairs(S, window):
     return window * (window + 1) // 2 + (S - window) * window
 
 
-def phase_gemma_times(model, gen, card):
+def k3_times(timer, gen, B, S, Hq, Hkv, D, window):
+    """K3 at one bf16 shape: its time, its plain version's, the fastest
+    SDPA backend's (causal, or a band mask for a window), host µs a call,
+    and its bound (q, k, v read and out written once; 4·D·Hq operations a
+    visible pair at the tensor-core peak)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
     from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
 
+    q, k, v = k3_inputs(gen, B, S, Hq, Hkv, D, torch.bfloat16)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())     # q, k, v read, out written
+    flops = 4 * D * Hq * B * k3_pairs(S, window)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window:
+        i = torch.arange(S, device="cuda")
+        band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band,
+                                                      enable_gqa=True)
+    else:
+        sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                      enable_gqa=True)
+    plain = flash_prefill_ref(q, k, v, window=window).float().transpose(1, 2)
+    backend, lib_ms, lib_err, every = sdpa_by_backend(timer, sdpa, plain)
+    del plain
+    info = {
+        "ms": timer.ms(lambda: flash_prefill_cuda(q, k, v, window=window)),
+        "plain_ms": timer.ms(lambda: flash_prefill_ref(q, k, v, window=window)),
+        "library_ms": lib_ms, "library_backend": f"SDPA {backend}",
+        "library_ms_by_backend": every,
+        "host_us": timer.host_us(lambda: flash_prefill_cuda(q, k, v, window=window)),
+        "library_host_us": timer.host_us(sdpa),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+        "pairs": B * k3_pairs(S, window), "library_max_abs_err_vs_plain": lib_err,
+    }
+    info["TFLOP_per_s"] = flops / info["ms"] / 1e9
+    return info
+
+
+def phase_gemma_times(model, gen, card):
     timer = Timer()
     out = {}
-    for name, (B, S, Hq, Hkv, D, window) in K3_TIMED.items():
-        q, k, v = k3_inputs(gen, B, S, Hq, Hkv, D, torch.bfloat16)
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())     # q, k, v read, out written
-        flops = 4 * D * Hq * B * k3_pairs(S, window)
-        b_ms, b_by = bound_ms(nbytes, flops)
-        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        if window:
-            i = torch.arange(S, device="cuda")
-            band = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
-            sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=band,
-                                                          enable_gqa=True)
-        else:
-            sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
-                                                          enable_gqa=True)
-        plain = flash_prefill_ref(q, k, v, window=window).float().transpose(1, 2)
-        backend, lib_ms, lib_err, every = sdpa_by_backend(timer, sdpa, plain)
-        del plain
-        out[name] = {
-            "ms": timer.ms(lambda: flash_prefill_cuda(q, k, v, window=window)),
-            "plain_ms": timer.ms(lambda: flash_prefill_ref(q, k, v, window=window)),
-            "library_ms": lib_ms, "library_backend": f"SDPA {backend}",
-            "library_ms_by_backend": every,
-            "host_us": timer.host_us(lambda: flash_prefill_cuda(q, k, v, window=window)),
-            "library_host_us": timer.host_us(sdpa),
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
-            "pairs": B * k3_pairs(S, window), "library_max_abs_err_vs_plain": lib_err,
-        }
-        out[name]["TFLOP_per_s"] = flops / out[name]["ms"] / 1e9
+    for name, shape in K3_TIMED.items():
+        out[name] = k3_times(timer, gen, *shape)
     torch.cuda.empty_cache()
 
     toks = torch.randint(1, model.cfg.vocab_size, (1, 4096), dtype=torch.int32,
@@ -1546,6 +1597,154 @@ def ptxas_report(logs) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 17-20: olmo-1b and qwen2-vl-7b, every family the paged engine serves
+# ---------------------------------------------------------------------------
+def phase_new_layouts(gen, main_lens, card):
+    """K1 and K3 against their plain versions at olmo-1b's (16/16: a
+    cluster of one block a pair at B=8) and qwen2-vl-7b's (28/4: 7 query
+    rows a KV head) layouts, bf16 and f32, with the sandbox cases."""
+    from repro_torch.kernels.paged_attention.kernel import cluster_size
+
+    clusters = {name: cluster_size(8, Hkv) for name, (_, Hkv) in NEW_LAYOUTS.items()}
+    if clusters["olmo-1b"] != 1:
+        fail(f"K1 at olmo-1b's 8 x 16 pairs launches clusters of {clusters['olmo-1b']}, "
+             "expected 1")
+    errs = {}
+    for name, (Hq, Hkv) in NEW_LAYOUTS.items():
+        layout = dict(B=8, Hq=Hq, Hkv=Hkv, D=128, P=512, T=16, MAXP=64, lens=main_lens)
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype)[6:]
+            errs[f"K1 {name} {dt}"] = check_k1(k1_inputs(gen, dtype=dtype, **layout),
+                                               K1_TOL[dtype])
+            for case in K1_SANDBOX_CASES:
+                args, expect = k1_sandbox_case(gen, case, dtype, layout)
+                errs[f"K1 {name} {case} {dt}"] = check_k1(args, K1_TOL[dtype],
+                                                          expect_oob=expect)
+            for softcap in (0.0, 30.0):
+                k3_name, err = check_k3(gen, (2, 471, Hq, Hkv, 128, 0, softcap), dtype)
+                errs[f"K3 {k3_name}"] = err
+    log(f"phase 17 new layouts vs plain on {card}: K1 cluster size at B=8 "
+        f"{clusters} (paged_attention bf16 at atol {TOL_K1_BF16['atol']:g}/rtol "
+        f"{TOL_K1_BF16['rtol']:g}, f32 at {TOL_F32['atol']:g}/{TOL_F32['rtol']:g}, the "
+        f"served lengths and the sandbox cases on rows 0-1); flash_prefill at S=471, "
+        f"softcap 0 and 30: max |err| { {k: f'{v:.1e}' for k, v in errs.items()} }")
+    return {"cluster_size_b8": clusters, "max_abs_err": max(errs.values()), "per_case": errs}
+
+
+def phase_family(cfg, gen, rng, card, n):
+    """One more paged configuration at full width and depth, served as
+    yi-9b is in phases 3-6: 8 streams and 3 submits through ``ServeEngine``
+    (K3 a prefill, K1 a step), the dense-cache chain, a B=8 step under the
+    profiler (phase 20), and one cross-pod handoff between two pools."""
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: {cfg.name} {cfg.num_layers} layers, {n_params / 1e9:.2f} B params "
+        f"(analytic {cfg.param_count() / 1e9:.2f} B), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = make_prompts(rng, 8, cfg.vocab_size)
+    extra = make_prompts(rng, 3, cfg.vocab_size)
+    eng, outputs, serve = phase_serve(cfg, model, prompts, extra, MAX_NEW,
+                                      label=f"phase {n} {cfg.name} main path on {card}")
+    dense = phase_dense(model, prompts + extra, outputs, MAX_NEW,
+                        label=f"phase {n} {cfg.name} dense-cache chain")
+    prof = phase_profile(eng, prompts, MAX_NEW,
+                         label=f"phase 20 where a {cfg.name} decode step goes")
+    del eng
+    torch.cuda.empty_cache()
+    src_pool, _, transfer = phase_transfer(cfg, gen,
+                                           label=f"phase {n} {cfg.name} cross-pod handoff")
+    del src_pool
+    torch.cuda.empty_cache()
+    info = {"serve": serve, "dense": dense, "profile": prof, "transfer": transfer,
+            "decode_lens": [len(p) + MAX_NEW for p in prompts],
+            "longest_prompt": max(len(p) for p in prompts + extra)}
+    return model, info
+
+
+def phase_mrope(model, cfg, rng, card):
+    """``Model.prefill`` with caller-given M-RoPE triples for an image:
+    the positions path runs (``_attend``, masked by the temporal stream)
+    and K3 does not; the logits are finite; explicit 0..S-1 triples on the
+    positions path give the K3 path's logits within the bf16 tolerance."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.models.attention import attention_full
+    from repro_torch.models.layers import image_positions
+
+    L, dev = cfg.num_layers, model.device
+    pos = image_positions(20, (16, 24), 60)
+    S = pos.shape[1]
+    pos = pos[:, None].to(dev)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, S)).astype(np.int32)).to(dev)
+    arange3 = torch.arange(S, dtype=torch.int32, device=dev)[None, None].expand(3, 1, S)
+
+    def run(**kw):
+        attention_full.paths = {"flash_prefill": 0, "positions": 0}
+        flash_prefill_cuda.launches = 0
+        logits, _ = model.prefill(toks, **kw)
+        sync(dev)
+        return logits, dict(attention_full.paths, k3_launches=flash_prefill_cuda.launches)
+
+    l_img, paths_img = run(positions=pos)
+    if paths_img != {"flash_prefill": 0, "positions": L, "k3_launches": 0}:
+        fail(f"the image prefill's paths {paths_img}: expected {L} layers on the positions "
+             "path and no flash_prefill launch")
+    if not torch.isfinite(l_img).all():
+        fail("the image prefill's logits are not finite")
+    l_pos, paths_pos = run(positions=arange3)
+    l_k3, paths_k3 = run()
+    if paths_pos["positions"] != L or paths_k3 != {"flash_prefill": L, "positions": 0,
+                                                   "k3_launches": L}:
+        fail(f"paths: arange triples {paths_pos}, no positions {paths_k3}")
+    err = (l_pos - l_k3).abs().max().item()
+    if not torch.allclose(l_pos, l_k3, **TOL_BF16):
+        fail(f"arange triples on the positions path disagree with the K3 path: "
+             f"max |err| {err:.3e}")
+    timer = Timer()
+    ms = {"positions_path": timer.ms(lambda: model.prefill(toks, positions=pos), samples=5,
+                                     warmup=1),
+          "k3_path": timer.ms(lambda: model.prefill(toks), samples=5, warmup=1)}
+    info = {"S": S, "grid": [16, 24], "paths_image": paths_img,
+            "max_abs_err_positions_vs_k3": err,
+            "top1_equal": int(l_pos.argmax()) == int(l_k3.argmax()), "prefill_ms": ms,
+            "image_top1": int(l_img.argmax())}
+    log(f"phase 19 M-RoPE image prefill on {card}: {S} tokens (20 text, a 16 x 24 patch "
+        f"grid at one temporal position, 60 text resuming at "
+        f"{int(pos[0, 0, 20 + 16 * 24])}); positions path {L} layers, flash_prefill 0 "
+        f"launches, logits finite; arange triples on the positions path vs the K3 path max "
+        f"|err| {err:.3e} (atol {TOL_BF16['atol']:g}/rtol {TOL_BF16['rtol']:g}), top-1 "
+        f"equal {info['top1_equal']}; prefill ms (CUDA events, median of 5): positions path "
+        f"{ms['positions_path']:.2f}, K3 path {ms['k3_path']:.2f}")
+    return info
+
+
+def phase_family_times(gen, fams, card):
+    """K1 at each model's decode shape (B=8, its served lengths) and K3 at
+    its prefill shape (B=1, its longest prompt), bf16, each with its bound
+    and the fastest SDPA backend timed alone."""
+    timer = Timer()
+    out = {}
+    for name, (Hq, Hkv) in NEW_LAYOUTS.items():
+        info = fams[name]
+        out[name] = {
+            "paged_attention": k1_times(timer, k1_inputs(gen, Hq=Hq, Hkv=Hkv,
+                                                         lens=info["decode_lens"])),
+            "flash_prefill": k3_times(timer, gen, 1, info["longest_prompt"], Hq, Hkv, 128, 0),
+        }
+        torch.cuda.empty_cache()
+    log(f"phase 20 times on {card} (ms, median of {SAMPLES}, L2 flushed): "
+        + "; ".join(f"{m} {k} {d['ms']:.5f}, plain {d['plain_ms']:.5f}, "
+                    f"{d['library_backend']} {d['library_ms']:.5f} (by backend "
+                    f"{json.dumps(d['library_ms_by_backend'])}), bound {d['bound_ms']:.5f} "
+                    f"({d['bound_by']}), host µs a call {d['host_us']:.1f}"
+                    for m, kd in out.items() for k, d in kd.items()))
+    return out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1642,40 +1841,68 @@ def main() -> int:
     g_tf = phase_gemma_teacher_forced(gemma, gcfg, rng, card)
     g_times = phase_gemma_times(gemma, gen, card)
     times["flash_prefill"] = g_times["flash_prefill"]["gemma3_global_S4096"]
+    del gemma
+    torch.cuda.empty_cache()
+
+    new = phase_new_layouts(gen, main_lens, card)
+    for name, prefix in (("paged_attention", "K1"), ("flash_prefill", "K3")):
+        errs[name] = max(errs[name], *(v for k, v in new["per_case"].items()
+                                       if k.startswith(prefix)))
+    fams = {}
+    olmo, fams["olmo-1b"] = phase_family(get_config("olmo_1b"), gen, rng, card, 18)
+    del olmo
+    torch.cuda.empty_cache()
+    qcfg = get_config("qwen2_vl_7b")
+    qwen, fams["qwen2-vl-7b"] = phase_family(qcfg, gen, rng, card, 19)
+    fams["qwen2-vl-7b"]["mrope"] = phase_mrope(qwen, qcfg, rng, card)
+    del qwen
+    torch.cuda.empty_cache()
+    fam_times = phase_family_times(gen, fams, card)
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
-                            "src/repro/kernels/paged_attention/kernel.py:189",
-                            serve["launches"]),
+                            "src/repro/kernels/paged_attention/kernel.py:189"),
         "gather_pages": ("src/repro_torch/csrc/scope_copy.cu",
-                         "src/repro/kernels/scope_copy/kernel.py:47",
-                         transfer["launches"]["gather_pages"]),
+                         "src/repro/kernels/scope_copy/kernel.py:47"),
         "scatter_pages": ("src/repro_torch/csrc/scope_copy.cu",
-                          "src/repro/kernels/scope_copy/kernel.py:75",
-                          transfer["launches"]["scatter_pages"]),
-        "ssd_intra_chunk": ("src/repro_torch/csrc/ssd.cu",
-                            "src/repro/kernels/ssd/kernel.py:77", m_serve["launches"]),
+                          "src/repro/kernels/scope_copy/kernel.py:75"),
+        "ssd_intra_chunk": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:77"),
         "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
-                          "src/repro/kernels/flash_prefill/kernel.py:84", g_serve["launches"]),
+                          "src/repro/kernels/flash_prefill/kernel.py:84"),
     }
-    # launches on the RPC plane's path (phase 16), summed over its parts
-    rpc_launches = {name: sum(part.get(name, 0) for part in rpc["launches"].values())
-                    for name in sources}
+    # launches on each path, each read around that path alone (the RPC
+    # plane's summed over its parts); a kernel's launches are their sum
+    by_path = {
+        "yi-9b": {"paged_attention": serve["launches"],
+                  "flash_prefill": serve["flash_prefill_launches"], **transfer["launches"]},
+        "yi-9b over the RPC plane": {
+            name: sum(part.get(name, 0) for part in rpc["launches"].values())
+            for name in sources},
+        "mamba2-1.3b": {"ssd_intra_chunk": m_serve["launches"]},
+        "gemma3-12b": {"flash_prefill": g_serve["launches"]},
+        **{name: {"paged_attention": f["serve"]["launches"],
+                  "flash_prefill": f["serve"]["flash_prefill_launches"],
+                  **f["transfer"]["launches"]} for name, f in fams.items()},
+    }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
-        "launches": launches, "launches_rpc": rpc_launches[name],
+        "launches": sum(path.get(name, 0) for path in by_path.values()),
+        "launches_by_path": {p: path[name] for p, path in by_path.items() if path.get(name)},
         "max_abs_err": errs[name],
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
         "library_ms": times[name]["library_ms"],
         "library_backend": times[name]["library_backend"],
-    } for name, (src, tpu, launches) in sources.items()]
+    } for name, (src, tpu) in sources.items()]
+    if idle := [k["name"] for k in kernels if not k["launches"]]:
+        fail(f"kernels of the main paths never launched: {idle}")
 
     result = {"card": card, "build_s": t_build, "ptxas": ptxas, "serve": serve, "dense": dense,
               "profile": prof, "transfer": transfer, "times": times,
               "ssd_kernel": ssd, "mamba_serve": m_serve, "mamba_teacher_forced": m_tf,
               "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,
               "gemma_teacher_forced": g_tf, "gemma_times": g_times, "rpc": rpc,
+              "new_layouts": new, "families": fams, "family_times": fam_times,
               "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

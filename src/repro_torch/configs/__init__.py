@@ -12,10 +12,12 @@ from typing import Dict, List
 
 from ..models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["yi_9b", "mamba2_1p3b", "gemma3_12b"]
+ARCH_IDS: List[str] = ["yi_9b", "mamba2_1p3b", "gemma3_12b", "olmo_1b",
+                        "yi_6b", "qwen2_vl_7b"]
 
 ALIASES: Dict[str, str] = {"yi-9b": "yi_9b", "mamba2-1.3b": "mamba2_1p3b",
-                           "gemma3-12b": "gemma3_12b"}
+                           "gemma3-12b": "gemma3_12b", "olmo-1b": "olmo_1b",
+                           "yi-6b": "yi_6b", "qwen2-vl-7b": "qwen2_vl_7b"}
 
 
 def _module(arch: str):

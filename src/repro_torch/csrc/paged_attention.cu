@@ -775,6 +775,17 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
                                      bitmap, out, oob, B, Hq, Hkv, P, T, MAXP, s);
 }
 
+// The cluster size the bf16 launch picks for B x Hkv (sequence, KV head)
+// pairs on the current device (1 leaves each pair's pages to one block), or
+// -(CUDA error code).
+extern "C" int paged_attention_cluster_size(int B, int Hkv) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return -(int)err;
+  return bf16::cluster_size(B * Hkv, sms);
+}
+
 extern "C" const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

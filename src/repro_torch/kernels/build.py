@@ -40,6 +40,8 @@ SIGNATURES = {
     # q, k_pool, v_pool, block_tab, seq_lens, perm, sandbox, bitmap,
     # out, oob, B, Hq, Hkv, D, P, T, MAXP, dtype code, stream
     "paged_attention_launch": [_P] * 10 + [_I] * 8 + [_P],
+    # B, Hkv; the bf16 launch's cluster size, or -(CUDA error)
+    "paged_attention_cluster_size": [_I, _I],
     # src, dst, pages, n, row_bytes, P, stream
     "gather_pages_launch": [_P] * 3 + [_I] * 3 + [_P],
     # pool, buf, pages, n, row_bytes, P, stream

@@ -69,3 +69,14 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tab, seq_lens, perm_bits,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "paged_attention")
     return out, oob
+
+
+def cluster_size(B: int, Hkv: int, lib=None) -> int:
+    """Blocks the bf16 kernel splits each (sequence, KV head) pair's pages
+    over on the current card, as its launch picks them: up to 8, 1 once
+    the B·Hkv pairs alone fill the card (olmo-1b at B=8)."""
+    lib = lib if lib is not None else build.library()
+    c = lib.paged_attention_cluster_size(B, Hkv)
+    if c < 0:
+        build.check(-c, "paged_attention_cluster_size")
+    return c

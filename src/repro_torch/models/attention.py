@@ -1,20 +1,29 @@
-"""GQA self-attention with RoPE, optional qk-norm and sliding windows, and
-dense or ring KV caches.
+"""GQA self-attention with RoPE or M-RoPE, optional q/k/v biases,
+qk-norm, sliding windows and a logit softcap, over dense or ring KV caches
+(bf16, fp32 or int8).
 
 Two entry modes:
-  * full-sequence prefill — the ``flash_prefill`` kernel (its plain
-    version on a CPU tensor) over positions 0..S-1, causal, with the
-    layer's window;
+  * full-sequence prefill. Without caller-given positions the positions
+    are 0..S-1 and the ``flash_prefill`` kernel (its plain version on a
+    CPU tensor) computes causal attention by token index, with the
+    layer's window. With caller-given positions (Qwen2-VL's M-RoPE
+    triples for an image) the reference masks by the values of the
+    temporal stream, which a kernel masking by index cannot do: that
+    prefill goes through ``_attend``, as the reference computes it.
+    ``attention_full.paths`` counts the layers each path ran;
   * decode — one query token per sequence against the cache, through
-    ``_attend``.
+    ``_attend``; ``pos`` is (B,) or a 0-d tensor when every sequence is at
+    the same position.
 
 KV caches of sliding-window layers are rings of ``min(window, cache_len)``
 slots (slot = position % size), as in the reference: gemma3's local layers
-keep 1024 tokens whatever the context.
+keep 1024 tokens whatever the context. An int8 cache stores K and V at the
+reference's fixed symmetric scale ``KV_INT8_SCALE``.
 
 ``_attend`` rounds as the reference does at every step: fp32 scores,
-``NEG_INF`` masking, fp32 softmax, and the weights cast to ``v``'s dtype
-before the PV product. These are plain products outside any kernel.
+the softcap, ``NEG_INF`` masking, fp32 softmax, and the weights cast to
+``v``'s dtype before the PV product. These are plain products outside any
+kernel, chunked over queries as the reference's are.
 """
 
 from __future__ import annotations
@@ -26,11 +35,13 @@ import torch
 
 from ..kernels.flash_prefill.ops import flash_prefill
 from .config import LayerSpec, ModelConfig
-from .layers import apply_rope, dense_init, rmsnorm
+from .layers import apply_mrope, apply_rope, dense_init, rmsnorm
 
 Params = Dict[str, Any]
 
 NEG_INF = -1e30
+Q_CHUNK = 1024         # queries a score block of ``_attend`` holds, as the reference's
+KV_INT8_SCALE = 0.05   # the reference's fixed symmetric scale for int8 KV caches
 
 
 def init_attention(gen, cfg: ModelConfig, device=None) -> Params:
@@ -41,6 +52,10 @@ def init_attention(gen, cfg: ModelConfig, device=None) -> Params:
         "wv": dense_init(gen, (d, Hkv, Dh), device=device),
         "wo": dense_init(gen, (H, Dh, d), device=device),
     }
+    if cfg.attn_bias:     # zeros, as the reference initialises them
+        p["bq"] = torch.zeros((H, Dh), dtype=torch.bfloat16, device=device)
+        p["bk"] = torch.zeros((Hkv, Dh), dtype=torch.bfloat16, device=device)
+        p["bv"] = torch.zeros((Hkv, Dh), dtype=torch.bfloat16, device=device)
     if cfg.qk_norm:
         p["q_norm"] = torch.ones((Dh,), dtype=torch.bfloat16, device=device)
         p["k_norm"] = torch.ones((Dh,), dtype=torch.bfloat16, device=device)
@@ -52,6 +67,8 @@ def init_attention(gen, cfg: ModelConfig, device=None) -> Params:
 # ---------------------------------------------------------------------------
 def _project_q(x, p, cfg: ModelConfig):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
     return q
@@ -60,44 +77,77 @@ def _project_q(x, p, cfg: ModelConfig):
 def _project_kv(x, p, cfg: ModelConfig):
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return k, v
 
 
+def _project_out(out, p):
+    """Heads back to d_model in the promoted dtype of the attention output
+    and ``wo``, as the reference's einsum promotes: fp32 weights over a
+    bf16 or int8 cache give fp32."""
+    dt = torch.promote_types(out.dtype, p["wo"].dtype)
+    return torch.einsum("bshk,hkd->bsd", out.to(dt), p["wo"].to(dt))
+
+
 def _rope_qk(q, k, positions, cfg: ModelConfig, spec: LayerSpec):
+    """positions: (B, S) for ``rope``; (3, B, S) for ``mrope``."""
+    if cfg.rope_kind == "mrope":
+        return (apply_mrope(q, positions, spec.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, spec.rope_theta, cfg.mrope_sections))
     if cfg.rope_kind != "rope":
         raise NotImplementedError(f"rope kind {cfg.rope_kind!r} is not ported")
     return (apply_rope(q, positions, spec.rope_theta),
             apply_rope(k, positions, spec.rope_theta))
 
 
+def _scalar_pos(positions):
+    """(B, S) positions from either rank: M-RoPE's temporal stream."""
+    return positions[0] if positions.dim() == 3 else positions
+
+
 # ---------------------------------------------------------------------------
-# core attention math for decode (GQA)
+# core attention math (GQA, chunked over queries)
 # ---------------------------------------------------------------------------
 def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
-            kv_valid: Optional[torch.Tensor] = None):
+            softcap: float = 0.0, kv_valid: Optional[torch.Tensor] = None):
     """q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D); *_pos: (B,S*). A key is visible
     when ``q_pos >= kv_pos`` (causal), ``q_pos - kv_pos < window`` (when
-    ``window``) and ``kv_valid``.
+    ``window``) and ``kv_valid``. Scores are tanh-capped at ``softcap``
+    (0: none) before the mask.
 
-    Scores materialize as (B, Hkv, qpk, Sq, Skv) fp32; decode has Sq = 1.
+    Scores materialize as (B, Hkv, qpk, Cq, Skv) fp32 for chunks of
+    ``Q_CHUNK`` queries; decode has Sq = 1.
     """
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, Dh)
-    s = torch.einsum("bqgpd,bkgd->bgpqk", qg.float(), k.float()) * (1.0 / math.sqrt(Dh))
-    mask = torch.ones((B, 1, 1, Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        m = q_pos[:, :, None] >= kv_pos[:, None, :]           # (B, Sq, Skv)
-        if window:
-            m = m & (q_pos[:, :, None] - kv_pos[:, None, :] < window)
-        mask = mask & m[:, None, None]
-    if kv_valid is not None:
-        mask = mask & kv_valid[:, None, None, None, :]
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgpqk,bkgd->bqgpd", w.to(v.dtype), v)
+    kf = k.float()
+
+    def attend_chunk(qc, qp):
+        s = torch.einsum("bqgpd,bkgd->bgpqk", qc.float(), kf) * (1.0 / math.sqrt(Dh))
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        mask = torch.ones((B, 1, 1, qc.shape[1], Skv), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            m = qp[:, :, None] >= kv_pos[:, None, :]          # (B, Cq, Skv)
+            if window:
+                m = m & (qp[:, :, None] - kv_pos[:, None, :] < window)
+            mask = mask & m[:, None, None]
+        if kv_valid is not None:
+            mask = mask & kv_valid[:, None, None, None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bgpqk,bkgd->bqgpd", w.to(v.dtype), v)
+
+    if Sq <= Q_CHUNK:
+        out = attend_chunk(qg, q_pos)
+    else:
+        out = torch.cat([attend_chunk(qg[:, c0:c0 + Q_CHUNK], q_pos[:, c0:c0 + Q_CHUNK])
+                         for c0 in range(0, Sq, Q_CHUNK)], dim=1)
     return out.reshape(B, Sq, H, Dh)
 
 
@@ -105,21 +155,34 @@ def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
 # public modes
 # ---------------------------------------------------------------------------
 def attention_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
-                   want_cache: bool = False, cache_len: int = 0):
-    """Prefill over the full sequence at positions 0..S-1 (what the
-    kernel assumes; ``positions`` feeds RoPE and the cache). With
-    ``want_cache`` also returns the KV cache sized ``cache_len`` (>= S
-    for decode continuation; a ring of the last tokens for a windowed
-    layer)."""
+                   want_cache: bool = False, cache_len: int = 0,
+                   caller_positions: bool = False):
+    """Prefill over the full sequence. ``positions`` ((B, S), or (3, B,
+    S) for M-RoPE) feed RoPE and the cache slots. Without
+    ``caller_positions`` they are 0..S-1 and the ``flash_prefill`` kernel
+    masks by token index; with it, ``_attend`` masks by the values of
+    ``_scalar_pos(positions)``, as the reference does. The choice is the
+    caller's, made on the host. With ``want_cache`` also returns the KV
+    cache sized ``cache_len`` (>= S for decode continuation; a ring of the
+    last tokens for a windowed layer)."""
     q = _project_q(x, p, cfg)
     k, v = _project_kv(x, p, cfg)
     q, k = _rope_qk(q, k, positions, cfg, spec)
-    out = flash_prefill(q, k, v, window=spec.sliding_window,
-                        softcap=cfg.attn_logit_softcap)
-    cache = (_build_cache(k, v, positions, spec.sliding_window, cache_len)
+    pos = _scalar_pos(positions)
+    if caller_positions:
+        out = _attend(q, k, v, pos, pos, causal=True, window=spec.sliding_window,
+                      softcap=cfg.attn_logit_softcap)
+        attention_full.paths["positions"] += 1
+    else:
+        out = flash_prefill(q, k, v, window=spec.sliding_window,
+                            softcap=cfg.attn_logit_softcap)
+        attention_full.paths["flash_prefill"] += 1
+    cache = (_build_cache(k, v, pos, spec.sliding_window, cache_len)
              if want_cache else None)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, cache
+    return _project_out(out, p), cache
+
+
+attention_full.paths = {"flash_prefill": 0, "positions": 0}
 
 
 def _cache_size(window: int, cache_len: int) -> int:
@@ -129,8 +192,8 @@ def _cache_size(window: int, cache_len: int) -> int:
 def _build_cache(k, v, pos, window: int, cache_len: int):
     """Prefill→decode cache. A windowed layer keeps a ring of the last
     ``min(window, cache_len)`` tokens at slot ``pos % size``; a global
-    layer keeps every token up to ``cache_len``. Unwritten slots carry
-    position -1."""
+    layer keeps every token at slot ``pos`` up to ``cache_len``. Unwritten
+    slots carry position -1."""
     B, S = k.shape[0], k.shape[1]
     size = _cache_size(window, cache_len)
     ck = torch.zeros((B, size) + tuple(k.shape[2:]), dtype=k.dtype,
@@ -147,37 +210,59 @@ def _build_cache(k, v, pos, window: int, cache_len: int):
     return {"k": ck, "v": cv, "pos": cpos}
 
 
+def _kv_load(c):
+    """An int8 cache's values in bf16 at the fixed scale; others as they are."""
+    if c.dtype == torch.int8:
+        return c.to(torch.bfloat16) * torch.tensor(KV_INT8_SCALE, dtype=torch.bfloat16,
+                                                   device=c.device)
+    return c
+
+
+def _kv_store(x, dtype):
+    if dtype == torch.int8:
+        return torch.clamp(torch.round(x.float() / KV_INT8_SCALE),
+                           -127, 127).to(torch.int8)
+    return x.to(dtype)
+
+
 def attention_decode(x, p, cfg: ModelConfig, spec: LayerSpec, cache: Params,
                      pos):
-    """One-token decode. x: (B, 1, D); pos: (B,) current positions.
+    """One-token decode. x: (B, 1, D); pos: (B,) current positions, or a
+    0-d tensor when every sequence is at the same position (the same slot
+    of every row is written; the reference's ``dynamic_update_slice``
+    branch, which only XLA needs apart).
 
     Writes this token's K/V into ``cache`` in place (slot ``pos % size``
-    in a windowed layer's ring; the returned cache is the same tensors)
-    and attends over the valid slots, within the window. ``pos`` must lie
-    inside a global layer's cache; ``apply_stack_decode`` checks that
-    before any layer writes.
+    in a windowed layer's ring; the returned cache is the same tensors;
+    an int8 cache stores them quantized) and attends over the valid
+    slots, within the window. M-RoPE turns q and k by three equal streams
+    from ``pos``. ``pos`` must lie inside a global layer's cache;
+    ``apply_stack_decode`` checks that before any layer writes.
     """
     B = x.shape[0]
+    pos_vec = pos.expand(B) if pos.dim() == 0 else pos
     q = _project_q(x, p, cfg)
     k_new, v_new = _project_kv(x, p, cfg)
-    pos2 = pos[:, None]
-    q, k_new = _rope_qk(q, k_new, pos2, cfg, spec)
+    pos2 = pos_vec[:, None]
+    rope_pos = pos2[None].expand(3, B, 1) if cfg.rope_kind == "mrope" else pos2
+    q, k_new = _rope_qk(q, k_new, rope_pos, cfg, spec)
 
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    slot = (pos_vec % ck.shape[1] if spec.sliding_window else pos_vec).long()
     bidx = torch.arange(B, device=x.device)
-    slot = (pos % ck.shape[1] if spec.sliding_window else pos).long()
-    ck[bidx, slot] = k_new[:, 0].to(ck.dtype)
-    cv[bidx, slot] = v_new[:, 0].to(cv.dtype)
-    cpos[bidx, slot] = pos.to(cpos.dtype)
+    ck[bidx, slot] = _kv_store(k_new[:, 0], ck.dtype)
+    cv[bidx, slot] = _kv_store(v_new[:, 0], cv.dtype)
+    cpos[bidx, slot] = pos_vec.to(cpos.dtype)
 
-    out = _attend(q, ck, cv, pos2, cpos, causal=True,
-                  window=spec.sliding_window, kv_valid=cpos >= 0)
-    y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return y, cache
+    out = _attend(q, _kv_load(ck), _kv_load(cv), pos2, cpos, causal=True,
+                  window=spec.sliding_window, softcap=cfg.attn_logit_softcap,
+                  kv_valid=cpos >= 0)
+    return _project_out(out, p), cache
 
 
 def empty_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                 cache_len: int, dtype=torch.bfloat16, device=None) -> Params:
+    """Zeros of ``dtype`` (bf16, fp32 or int8) with every slot at position -1."""
     size = _cache_size(spec.sliding_window, cache_len)
     shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
     return {

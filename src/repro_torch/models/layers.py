@@ -1,5 +1,6 @@
 """Shared building blocks: init, RMSNorm (plain and gemma's ``1 + w``),
-rotary embeddings, SwiGLU, embedding and unembedding.
+OLMo's non-parametric LayerNorm, rotary embeddings (RoPE and Qwen2-VL's
+M-RoPE), SwiGLU, embedding and unembedding.
 
 Plain functions over explicit parameter trees (nested dicts, or the
 ``ModuleDict``/``ParameterDict`` nesting of ``Model`` — both index the
@@ -32,13 +33,16 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
     return w.to(device=device, dtype=dtype)
 
 
-NORM_KINDS = ("rmsnorm", "rmsnorm_gemma")
+NORM_KINDS = ("rmsnorm", "rmsnorm_gemma", "layernorm_np")
 
 
 def init_norm(d: int, kind: str, device=None) -> Params:
-    """RMSNorm scales: ones, or zeros for gemma's ``(1 + w)`` form."""
+    """RMSNorm scales: ones, or zeros for gemma's ``(1 + w)`` form; OLMo's
+    LayerNorm has no parameters (an empty subtree, as in the reference)."""
     if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported")
+    if kind == "layernorm_np":
+        return {}
     fill = torch.zeros if kind == "rmsnorm_gemma" else torch.ones
     return {"scale": fill((d,), dtype=torch.bfloat16, device=device)}
 
@@ -57,9 +61,21 @@ def rmsnorm(x: torch.Tensor, w, eps: float = 1e-6,
     return x.to(dt)
 
 
+def layernorm_np(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: fp32 statistics, no scale, no bias."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps)).to(dt)
+
+
 def apply_norm(x: torch.Tensor, params, kind: str, eps: float):
+    """``params`` may be ``None`` or empty for ``layernorm_np``."""
     if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported")
+    if kind == "layernorm_np":
+        return layernorm_np(x, eps)
     return rmsnorm(x, params["scale"], eps, gemma=kind == "rmsnorm_gemma")
 
 
@@ -79,6 +95,44 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     ang = positions.float()[..., None] * inv                 # (B, S, D/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE. x: (B, S, H, D); positions3: (3, B, S)
+    int, the temporal, height and width streams. The D/2 frequency slots
+    split into ``sections`` (16/24/24 at D 128), each slot turned by its
+    section's stream; three equal streams give 1-D RoPE."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must cover the "
+                         f"{half} frequency slots")
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)    # (D/2,)
+    stream = torch.repeat_interleave(
+        torch.arange(len(sections)), torch.tensor(sections)).to(x.device)
+    ang = positions3[stream].float().permute(1, 2, 0) * inv  # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+def image_positions(n_text0: int, grid, n_text1: int) -> torch.Tensor:
+    """Qwen2-VL's M-RoPE triples for text, one image and text again, (3, S)
+    int32 with S = n_text0 + gh * gw + n_text1: the image's patches share
+    one temporal position and count rows and columns on the height and
+    width streams from where the text stopped; the text after it resumes on
+    all three streams one past the grid's largest position."""
+    gh, gw = grid
+    rows, cols = torch.meshgrid(torch.arange(gh), torch.arange(gw), indexing="ij")
+    img = torch.stack([torch.full((gh * gw,), n_text0), n_text0 + rows.reshape(-1),
+                       n_text0 + cols.reshape(-1)])
+    t1 = int(img.max()) + 1 + torch.arange(n_text1)
+    return torch.cat([torch.arange(n_text0).expand(3, -1), img, t1.expand(3, -1)],
+                     dim=1).to(torch.int32)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

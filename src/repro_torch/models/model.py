@@ -1,4 +1,5 @@
-"""Top-level Model for the dense and SSM families: init, prefill, decode.
+"""Top-level Model for the dense, vlm (Qwen2-VL's backbone) and SSM
+families: init, prefill, decode.
 
 ``Model`` is an ``nn.ModuleDict`` whose parameter tree has the reference
 tree's key paths (``embed.tok``, ``stack.pos0.attn.wq``, ``norm_f.scale``)
@@ -36,16 +37,17 @@ def _to_module(tree: Mapping[str, Any]) -> nn.Module:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise for any architecture feature outside the ported families:
-    dense (RoPE, SwiGLU; optionally gemma's RMSNorm, qk-norm and sliding
-    windows) and Mamba-2 SSM (no positions)."""
+    dense (RoPE, SwiGLU; optionally gemma's RMSNorm, OLMo's LayerNorm,
+    q/k/v biases, qk-norm, sliding windows and a logit softcap), vlm (the
+    same with M-RoPE) and Mamba-2 SSM (no positions). MoE, encoders and
+    the hybrid stay refused."""
+    rope = {"dense": "rope", "vlm": "mrope", "ssm": "none"}
     unported = [
         name for name, bad in (
-            ("family", cfg.family not in ("dense", "ssm")),
+            ("family", cfg.family not in rope),
             ("norm_kind", cfg.norm_kind not in NORM_KINDS),
-            ("rope_kind", cfg.rope_kind != ("rope" if cfg.family == "dense" else "none")),
+            ("rope_kind", cfg.rope_kind != rope.get(cfg.family)),
             ("mlp_kind", cfg.mlp_kind != "swiglu"),
-            ("attn_bias", cfg.attn_bias),
-            ("attn_logit_softcap", bool(cfg.attn_logit_softcap)),
             ("encoder_layers", bool(cfg.encoder_layers)),
             ("num_experts", bool(cfg.num_experts)),
         ) if bad]
@@ -92,25 +94,43 @@ class Model(nn.ModuleDict):
         return self
 
     # -- serving ------------------------------------------------------------
-    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None):
+    def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
+                positions: Optional[torch.Tensor] = None):
         """tokens: (B, S) int. Returns (last-token logits (B, V) fp32,
         cache). An attention layer's cache leaves are (L, B, cache_len,
         Hkv, D); an SSM layer's are the conv tails (L, B, K-1, C) in the
-        activation dtype and the SSD state (L, B, H, N, P) in fp32."""
+        activation dtype and the SSD state (L, B, H, N, P) in fp32.
+
+        ``positions``: M-RoPE's (3, B, S) int streams (temporal, height,
+        width), as the reference's ``batch["positions"]``. Without them
+        the positions are 0..S-1 (three equal streams for M-RoPE) and
+        attention runs the ``flash_prefill`` kernel; with them it masks by
+        the temporal stream's values, as the reference does
+        (``attention_full``)."""
         cfg = self.cfg
         B, S = tokens.shape
         cache_len = cache_len or S
         x = embed_tokens(tokens, self["embed"], cfg.embed_scale, cfg.d_model)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
+        given = positions is not None
+        if not given:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device)[None].expand(B, S)
+            if cfg.rope_kind == "mrope":
+                positions = positions[None].expand(3, B, S)
+        elif cfg.rope_kind != "mrope" or tuple(positions.shape) != (3, B, S):
+            raise ValueError(f"{cfg.name}: caller positions are M-RoPE's "
+                             f"(3, {B}, {S}) streams, got {tuple(positions.shape)} "
+                             f"for rope kind {cfg.rope_kind!r}")
         x, cache = apply_stack_full(x, self["stack"], cfg, positions,
-                                    want_cache=True, cache_len=cache_len)
+                                    want_cache=True, cache_len=cache_len,
+                                    caller_positions=given)
         x = apply_norm(x[:, -1:], self["norm_f"], cfg.norm_kind, cfg.norm_eps)
         return unembed(x, self["embed"])[:, 0].float(), cache
 
     def decode_step(self, token: torch.Tensor, pos: torch.Tensor,
                     cache: Params):
-        """token: (B,) int; pos: (B,) int (unused by SSM layers). Returns
+        """token: (B,) int; pos: (B,) int, or a 0-d int tensor when every
+        sequence is at the same position (unused by SSM layers). Returns
         (logits (B, V) fp32, cache) — the cache is updated in place."""
         cfg = self.cfg
         x = embed_tokens(token[:, None], self["embed"], cfg.embed_scale,
@@ -121,6 +141,8 @@ class Model(nn.ModuleDict):
 
     def empty_cache(self, batch: int, cache_len: int,
                     kv_dtype=torch.bfloat16) -> Params:
+        """Empty decode caches; ``kv_dtype`` bf16, fp32 or int8 (stored at
+        ``attention.KV_INT8_SCALE``) for the attention layers."""
         return empty_stack_cache(self.cfg, batch, cache_len,
                                  kv_dtype=kv_dtype, device=self.device)
 

@@ -5,7 +5,8 @@ Parameters for each super-block position are stacked over blocks with a
 leading layer axis (``stack.pos0.attn.wq`` is ``(L, d, H, Dh)``), as in
 the reference; the reference's ``lax.scan`` over that axis becomes a
 Python loop over layer slices (views, no copies). A layer has an MLP
-only when ``d_ff > 0`` (an SSM layer of mamba2 has none). A windowed
+only when ``d_ff > 0`` (an SSM layer of mamba2 has none). A norm's
+subtree is empty for OLMo's non-parametric LayerNorm. A windowed
 position's cache leaves are rings of ``min(window, cache_len)`` slots.
 """
 
@@ -60,17 +61,19 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device=None) -> Params:
 def _mlp_residual(x, p, cfg: ModelConfig):
     if "mlp" not in p:
         return x
-    h = apply_norm(x, p["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
+    h = apply_norm(x, p.get("norm_mlp"), cfg.norm_kind, cfg.norm_eps)
     return x + mlp_apply(h, p["mlp"], cfg.mlp_kind)
 
 
 def apply_layer_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
-                     want_cache: bool = False, cache_len: int = 0):
+                     want_cache: bool = False, cache_len: int = 0,
+                     caller_positions: bool = False):
     """Prefill application. Returns (x, cache)."""
-    h = apply_norm(x, p["norm_in"], cfg.norm_kind, cfg.norm_eps)
+    h = apply_norm(x, p.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
     if spec.kind == "attn":
         a, c = attention_full(h, p["attn"], cfg, spec, positions,
-                              want_cache=want_cache, cache_len=cache_len)
+                              want_cache=want_cache, cache_len=cache_len,
+                              caller_positions=caller_positions)
         key = "self"
     else:
         a, c = ssm_forward(h, p["ssm"], cfg, want_state=want_cache)
@@ -83,7 +86,7 @@ def apply_layer_decode(x, p, cfg: ModelConfig, spec: LayerSpec,
                        cache: Params, pos):
     """One-token decode. Returns x; ``cache`` is updated in place (each
     leaf keeps its dtype)."""
-    h = apply_norm(x, p["norm_in"], cfg.norm_kind, cfg.norm_eps)
+    h = apply_norm(x, p.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
     if spec.kind == "attn":
         a, _ = attention_decode(h, p["attn"], cfg, spec, cache["self"], pos)
     else:
@@ -127,8 +130,11 @@ def _copy_into(stacked, layer, b: int) -> None:
 
 
 def apply_stack_full(x, stack, cfg: ModelConfig, positions,
-                     want_cache: bool = False, cache_len: int = 0):
-    """Returns (x, cache) with cache leaves stacked (L, B, cache_len, ...)."""
+                     want_cache: bool = False, cache_len: int = 0,
+                     caller_positions: bool = False):
+    """Returns (x, cache) with cache leaves stacked (L, B, cache_len, ...).
+    ``positions``: (B, S), or (3, B, S) for M-RoPE; ``caller_positions``
+    selects the attention path (``attention_full``)."""
     pattern = cfg.block_pattern()
     per_block: List[Params] = []
     for b in range(cfg.num_blocks):
@@ -136,7 +142,8 @@ def apply_stack_full(x, stack, cfg: ModelConfig, positions,
         for i, spec in enumerate(pattern):
             x, c = apply_layer_full(x, tree_index(stack[f"pos{i}"], b), cfg,
                                     spec, positions, want_cache=want_cache,
-                                    cache_len=cache_len)
+                                    cache_len=cache_len,
+                                    caller_positions=caller_positions)
             caches[f"pos{i}"] = c
         per_block.append(caches)
     if not want_cache:

@@ -1,4 +1,5 @@
-"""Paged decode over the RPCool KV pool, for uniform dense GQA stacks.
+"""Paged decode over the RPCool KV pool, for uniform GQA stacks (the
+dense and vlm families: yi, olmo, qwen2-vl's backbone).
 
 Prefill reuses the standard stack (``Model.prefill``); decode projects
 q/k/v per layer, writes this token's K/V into its page slot, and attends
@@ -16,11 +17,16 @@ from ..kernels.paged_attention.ops import paged_attention
 from ..models.attention import _project_kv, _project_q
 from ..models.config import ModelConfig
 from ..models.layers import apply_norm, apply_rope, embed_tokens, mlp_apply, unembed
-from ..models.model import Model
+from ..models.model import Model, check_ported
 from ..models.transformer import tree_index
 
 
 def check_paged_compatible(cfg: ModelConfig) -> None:
+    """Raise unless ``cfg`` is a ported, uniform self-attention stack
+    (``NotImplementedError`` for MoE, encoders and the hybrid, which the
+    port does not run at all; ``ValueError`` for SSM and windowed stacks,
+    which decode over dense caches instead)."""
+    check_ported(cfg)
     pattern = cfg.block_pattern()
     if len(pattern) != 1 or pattern[0].kind != "attn" or pattern[0].moe:
         raise ValueError(
@@ -56,9 +62,10 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, pos, block_tab,
 
     for l in range(cfg.num_layers):
         lp = tree_index(params["stack"]["pos0"], l)
-        h = apply_norm(x, lp["norm_in"], cfg.norm_kind, cfg.norm_eps)
+        h = apply_norm(x, lp.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
         q = _project_q(h, lp["attn"], cfg)              # (B, 1, Hq, D)
         k_new, v_new = _project_kv(h, lp["attn"], cfg)  # (B, 1, Hkv, D)
+        # text-only decode: M-RoPE with equal t/h/w streams is RoPE
         q = apply_rope(q, pos[:, None], spec.rope_theta)
         k_new = apply_rope(k_new, pos[:, None], spec.rope_theta)
 
@@ -72,7 +79,7 @@ def paged_decode_step(cfg: ModelConfig, params, tokens, pos, block_tab,
         oob_total = oob_total + oob
         a = torch.einsum("bhk,hkd->bd", out, lp["attn"]["wo"])[:, None]
         x = x + a
-        h = apply_norm(x, lp["norm_mlp"], cfg.norm_kind, cfg.norm_eps)
+        h = apply_norm(x, lp.get("norm_mlp"), cfg.norm_kind, cfg.norm_eps)
         x = x + mlp_apply(h, lp["mlp"], cfg.mlp_kind)
 
     x = apply_norm(x, params["norm_f"], cfg.norm_kind, cfg.norm_eps)

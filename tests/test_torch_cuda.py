@@ -86,6 +86,8 @@ def test_paged_attention_kernel_matches_plain_at_slice_shape(dev, dtype):
 
 @pytest.mark.parametrize("B,Hq,Hkv,D,T,dtype", [
     (8, 32, 4, 128, 16, torch.bfloat16),     # yi-9b heads
+    (8, 16, 16, 128, 16, torch.bfloat16),    # olmo-1b: 128 pairs, a cluster of 1
+    (8, 28, 4, 128, 16, torch.bfloat16),     # qwen2-vl-7b: 7 query rows a KV head
     (2, 4, 1, 64, 8, torch.float32),
     (3, 8, 8, 128, 16, torch.float32),
     (2, 16, 2, 64, 8, torch.bfloat16),
@@ -139,9 +141,21 @@ def test_paged_attention_bf16_split_edges(dev, lens, MAXP):
 
 
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (16, 2)])   # 1 and 8 query rows a KV head
+# 1, 8 and 7 query rows a KV head
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (16, 2), (28, 4)])
 def test_paged_attention_bf16_group_sizes(dev, Hq, Hkv, D):
     args = _k1_inputs(3, Hq, Hkv, D, 16, torch.bfloat16, P=128, MAXP=32, seed=Hq + D)
+    _k1_check(args, dev, K1_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("Hq,Hkv,C", [(16, 16, 1), (28, 4, 4), (32, 4, 4)])
+def test_paged_attention_bf16_cluster_size_at_served_shapes(dev, Hq, Hkv, C):
+    """At B=8 and the served lengths, olmo-1b's 128 (sequence, KV head)
+    pairs fill the card alone, so each pair's 30 pages stay with one block
+    (a cluster of 1); qwen2-vl-7b's and yi-9b's 32 pairs split over 4."""
+    from repro_torch.kernels.paged_attention.kernel import cluster_size
+    assert cluster_size(8, Hkv) == C
+    args = _k1_inputs(8, Hq, Hkv, 128, 16, torch.bfloat16, P=512, MAXP=64, lens=SLICE_LENS)
     _k1_check(args, dev, K1_TOL[torch.bfloat16])
 
 
@@ -248,6 +262,82 @@ def test_engine_on_card_serves_through_the_kernel(dev):
     assert eng.oob_events == 0
     assert eng.pool.heap.free_pages() == free0
     assert eng.pool.stats()["sealed_pages"] == 0
+
+
+def test_qwen2_vl_engine_on_card_serves_through_the_kernels(dev):
+    """qwen2-vl's smoke family at the kernels' head_dim 64 with 7 query
+    heads a KV head (14/2) and sections (8, 12, 12): the engine on the
+    card serves 3 streams and a submit through K3 and K1, each launched L
+    times per prefill and per step, and the tokens equal the same engine's
+    on the CPU outside near-ties of the CPU dense chain. Then one prefill
+    with image-like position triples takes the positions path (no K3
+    launch) and agrees with the CPU's."""
+    from repro_torch.models.attention import attention_full
+    from repro_torch.models.layers import image_positions
+    cfg = replace(get_smoke_config("qwen2_vl_7b"), head_dim=64, num_heads=14,
+                  num_kv_heads=2, mrope_sections=(8, 12, 12))
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    for name in ("bq", "bk", "bv"):   # zeros at init: make them count
+        b = model["stack"]["pos0"]["attn"][name]
+        b.copy_(0.5 * torch.randn(b.shape, generator=g))
+    model_d = copy.deepcopy(model).to(dev)
+    pc = PoolConfig(num_pages=64, page_tokens=8, max_pages_per_seq=8)
+    prompts = [list(range(1, 4 + 5 * i)) for i in range(3)]
+    out = {}
+    for where, m in (("cpu", model), ("cuda", model_d)):
+        eng = ServeEngine(cfg, m, pc, max_active=4, device=where)
+        n0, f0 = paged_attention.launches, flash_prefill_cuda.launches
+        gens = [eng.generate_tokens(p, 6) for p in prompts]
+        out[where] = [list(gen) for gen in gens]
+        rid = eng.submit([7, 8, 9], 5)
+        eng.run_until_drained(timeout=120)
+        out[where].append(eng.result(rid))
+        if where == "cuda":
+            assert paged_attention.launches - n0 == cfg.num_layers * eng.decode_steps
+            assert flash_prefill_cuda.launches - f0 == cfg.num_layers * 4
+        assert eng.oob_events == 0 and eng.pool.stats()["sealed_pages"] == 0
+    for p, a, b in zip(prompts + [[7, 8, 9]], out["cpu"], out["cuda"]):
+        if a != b:
+            i = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            lg, cache = model.prefill(torch.tensor([p], dtype=torch.int32),
+                                      cache_len=len(p) + len(a))
+            for k in range(i):
+                lg, cache = model.decode_step(torch.tensor([a[k]], dtype=torch.int32),
+                                              torch.tensor([len(p) + k], dtype=torch.int32),
+                                              cache)
+            top2 = lg[0].sort().values[-2:]
+            assert top2[1] - top2[0] <= 5e-2 + 5e-2 * top2[1].abs(), (a, b)
+    pos = image_positions(2, (3, 3), 3)[:, None].expand(3, 2, 14).contiguous()
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        1, cfg.vocab_size, size=(2, 14)).astype(np.int32))
+    lc, _ = model.prefill(toks, positions=pos)
+    paths, f0 = dict(attention_full.paths), flash_prefill_cuda.launches
+    ld, _ = model_d.prefill(toks.to(dev), positions=pos.to(dev))
+    assert flash_prefill_cuda.launches == f0
+    assert attention_full.paths["positions"] - paths["positions"] == cfg.num_layers
+    torch.testing.assert_close(ld.cpu(), lc, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "yi_6b", "qwen2_vl_7b"])
+def test_full_width_init_on_card(dev, arch):
+    """Each paged family's published config initialises on the card, its
+    parameter count within 0.1% of the analytic one (which counts norms
+    approximately and no biases), with empty norm subtrees for olmo and
+    zero biases for qwen2-vl."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    model = build_model(cfg).init(torch.Generator(dev).manual_seed(0))
+    assert model.device.type == "cuda"
+    n = sum(p.numel() for p in model.parameters())
+    assert abs(n - cfg.param_count()) <= 1e-3 * cfg.param_count()
+    attn = model["stack"]["pos0"]["attn"]
+    assert ("bq" in attn) == cfg.attn_bias
+    if cfg.attn_bias:
+        assert not attn["bq"].any()
+    assert (len(model["norm_f"]) == 0) == (cfg.norm_kind == "layernorm_np")
+    del model
+    torch.cuda.empty_cache()
 
 
 def test_threaded_engine_on_card_streams_over_the_ring(dev):
@@ -413,7 +503,8 @@ def _k3_inputs(B, S, Hq, Hkv, D, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128, 256])     # 256 in f32: 216 KB of shared memory
-@pytest.mark.parametrize("heads", [(4, 2), (8, 8), (4, 1), (32, 4), (16, 8)])
+@pytest.mark.parametrize("heads", [(4, 2), (8, 8), (4, 1), (32, 4), (16, 8), (16, 16),
+                                   (28, 4)])
 def test_flash_prefill_kernel_matches_plain(dev, dtype, D, heads):
     """S 64/100/256/1000 (ragged tiles at 100 and 1000), window 0/32,
     softcap 0/30: the kernel against its plain version on the card, at

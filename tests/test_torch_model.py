@@ -33,16 +33,17 @@ def pair():
 def test_config_matches_reference():
     from repro.configs import get_config as jax_config
     for name in ("yi_9b", "yi-9b", "mamba2_1p3b", "mamba2-1.3b", "gemma3_12b",
-                 "gemma3-12b"):
+                 "gemma3-12b", "olmo_1b", "olmo-1b", "yi_6b", "yi-6b", "qwen2_vl_7b",
+                 "qwen2-vl-7b"):
         assert get_config(name).__dict__ == jax_config(name).__dict__
         assert get_config(name).param_count() == jax_config(name).param_count()
-    for name in ("yi_9b", "mamba2_1p3b", "gemma3_12b"):
+    for name in ("yi_9b", "mamba2_1p3b", "gemma3_12b", "olmo_1b", "yi_6b", "qwen2_vl_7b"):
         assert get_smoke_config(name).__dict__ == jax_smoke(name).__dict__
         assert get_smoke_config(name).param_count() == jax_smoke(name).param_count()
     cfg = get_config("mamba2_1p3b")
     assert (cfg.d_inner, cfg.ssm_heads) == (4096, 64)
     with pytest.raises(KeyError):
-        get_config("olmo_1b")
+        get_config("granite_moe_1b_a400m")
 
 
 def _leaves(tree, prefix=""):

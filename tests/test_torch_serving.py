@@ -1,6 +1,8 @@
 """The port's serving plane against the reference's: pool page ids and
 seals, the cross-pod transfer, one paged decode step, and the engine's
-token streams on the same weights and prompts."""
+token streams on the same weights and prompts, for each configuration
+the paged engine serves (yi-9b, olmo-1b, yi-6b and qwen2-vl-7b at smoke
+size; qwen2-vl's q/k/v biases set nonzero on both sides)."""
 
 import pytest
 
@@ -31,11 +33,28 @@ BF16 = dict(atol=5e-2, rtol=5e-2)   # tests/test_kernels.py:29
 POOL = dict(num_pages=64, page_tokens=8, max_pages_per_seq=8)
 
 
-@pytest.fixture(scope="module")
-def lm():
-    jcfg, tcfg = jax_smoke("yi_9b"), get_smoke_config("yi_9b")
+PAGED_ARCHS = ["yi_9b", "olmo_1b", "yi_6b", "qwen2_vl_7b"]
+
+
+def with_nonzero_biases(params, seed=0):
+    """The reference initialises q/k/v biases to zero (attention.py:51-56),
+    so a comparison at init would not see them: give each a draw of
+    N(0, 0.5) in its own dtype."""
+    attn = params["stack"]["pos0"]["attn"]
+    if "bq" not in attn:
+        return params
+    rng = np.random.default_rng(seed)
+    attn = dict(attn, **{n: jnp.asarray(0.5 * rng.standard_normal(attn[n].shape),
+                                        attn[n].dtype) for n in ("bq", "bk", "bv")})
+    stack = dict(params["stack"], pos0=dict(params["stack"]["pos0"], attn=attn))
+    return dict(params, stack=stack)
+
+
+@pytest.fixture(scope="module", params=PAGED_ARCHS)
+def lm(request):
+    jcfg, tcfg = jax_smoke(request.param), get_smoke_config(request.param)
     jm = jax_build(jcfg)
-    params = jm.init(jax.random.PRNGKey(0))
+    params = with_nonzero_biases(jm.init(jax.random.PRNGKey(0)))
     tm = build_model(tcfg).load_params(jax.tree.map(np.asarray, params),
                                        device="cpu")
     return jcfg, jm, params, tcfg, tm
