@@ -90,6 +90,24 @@ before the result line is printed:
     shapes beside their bounds, plain versions and SDPA (each backend
     alone), and a B=8 decode step of each under ``torch.profiler``
     (printed with phases 18 and 19);
+21. the flash-prefill kernel against its plain version at the MoE
+    models' prefill shapes (B=1, the longest prompt: granite-moe's 16/8
+    heads at head_dim 64, qwen3-moe's 32/4 at 128), bf16 and f32, and
+    timed beside its bound, its plain version and SDPA;
+22. granite-moe-1b-a400m at full width and depth (24 layers, 32 experts,
+    top-8), random weights from a seed, through ``Model.prefill`` and
+    ``Model.decode_step`` under ``dropless_moe()`` (the paged engine
+    refuses MoE, as the reference's ``PagedLM`` does): 8 requests
+    prefilled alone (K3 L x prefills), caches joined, 16 greedy steps at
+    B=8; a decode step's device-to-host syncs, decode steps and an
+    8 x 512 prefill under ``torch.profiler``; the capacity path: an
+    8 x 512 prefill at factor 1.25 with each layer's dropped slots, and
+    at factor E/k (nothing drops) each layer's output against the
+    dropless path's on the same input; then fp32 teacher forcing over
+    the served weights in fp32;
+23. qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts,
+    top-8; 61 GB in bf16) the same, its fp32 teacher forcing over its
+    first 24 layers (all 48 would take ~122 GB);
 
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
@@ -151,6 +169,9 @@ K3_CASES = [(1, 471, 32, 4, 128, 0, 0.0), (1, 471, 32, 4, 128, 0, 30.0),
 # timed at B=1, bf16: yi-9b's prefill, gemma3's global and local layers at 4,096
 # (Hq, Hkv) at head_dim 128 of the paged configurations added after yi-9b
 NEW_LAYOUTS = {"olmo-1b": (16, 16), "qwen2-vl-7b": (28, 4)}
+# the MoE configurations (config id: layers of its fp32 teacher forcing;
+# qwen3-moe's 48 would take ~122 GB in fp32, its first 24 take ~63 GB)
+MOE_ARCHS = {"granite-moe-1b-a400m": 24, "qwen3-moe-30b-a3b": 24}
 K3_TIMED = {"yi9b_S471": (1, 471, 32, 4, 128, 0), "gemma3_global_S4096": (1, 4096, 16, 8, 256, 0),
             "gemma3_local_S4096": (1, 4096, 16, 8, 256, 1024)}
 
@@ -832,14 +853,16 @@ def tree_cat(trees, dim):
             else torch.cat([t[k] for t in trees], dim=dim) for k, v in first.items()}
 
 
-def first_step_ties(batched, alone):
+def first_step_ties(batched, alone, streams=None):
     """Rows where the batched step picks another token than the stream
     alone must be near-ties of the stream alone (top-2 gap within the
     bf16 tolerance): B=8 and B=1 run different GEMM kernels, whose bf16
     roundings part over 48 layers. A row joined from the wrong cache
-    differs everywhere, not at a near-tie."""
+    differs everywhere, not at a near-tie. ``streams`` names the rows
+    (default 0, 1, ...)."""
     ties = []
-    for i, (b, a) in enumerate(zip(batched.argmax(-1).tolist(), alone.argmax(-1).tolist())):
+    streams = range(len(batched)) if streams is None else streams
+    for i, b, a in zip(streams, batched.argmax(-1).tolist(), alone.argmax(-1).tolist()):
         if b != a:
             top2 = torch.topk(alone[i], 2).values.tolist()
             gap = top2[0] - top2[1]
@@ -1745,6 +1768,373 @@ def phase_family_times(gen, fams, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 21-23: the MoE families (granite-moe-1b-a400m, qwen3-moe-30b-a3b)
+# ---------------------------------------------------------------------------
+def phase_moe_kernels(gen, shapes, card):
+    """K3 against its plain version at each MoE model's prefill shape (B=1,
+    its longest prompt), bf16 and f32 at phase 12's tolerances, then timed
+    beside its bound, its plain version and SDPA (each backend alone)."""
+    errs = dict(check_k3(gen, (1, S, Hq, Hkv, D, 0, 0.0), dtype)
+                for S, Hq, Hkv, D in shapes.values()
+                for dtype in (torch.bfloat16, torch.float32))
+    timer = Timer()
+    times = {name: k3_times(timer, gen, 1, S, Hq, Hkv, D, 0)
+             for name, (S, Hq, Hkv, D) in shapes.items()}
+    torch.cuda.empty_cache()
+    log(f"phase 21 flash_prefill at the MoE models' prefill shapes on {card} (bf16 at atol "
+        f"{TOL_K1_BF16['atol']:g}/rtol {TOL_K1_BF16['rtol']:g}, f32 at "
+        f"{TOL_F32['atol']:g}/{TOL_F32['rtol']:g}): max |err| "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; times (ms, median of {SAMPLES}, L2 "
+        "flushed): "
+        + "; ".join(f"{n} {d['ms']:.5f} ({d['TFLOP_per_s']:.1f} TFLOP/s), plain "
+                    f"{d['plain_ms']:.5f}, {d['library_backend']} {d['library_ms']:.5f} (by "
+                    f"backend {json.dumps(d['library_ms_by_backend'])}), bound "
+                    f"{d['bound_ms']:.5f} ({d['bound_by']}), host µs a call "
+                    f"{d['host_us']:.1f}" for n, d in times.items()))
+    return {"max_abs_err": max(errs.values()), "per_case": errs, "times": times}
+
+
+def count_syncs(fn) -> dict:
+    """Device-to-host synchronisations in one call of ``fn``, as CUDA's
+    sync debug mode reports them, by the source line that made them."""
+    import warnings
+    from collections import Counter
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(Counter(f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                        if "synchroniz" in str(w.message)))
+
+
+def routed(fn, pinned=None):
+    """Call ``fn`` with every MoE layer's router logits (fp32, rows =
+    tokens) and experts recorded; with ``pinned`` (experts a layer, rows =
+    tokens) each layer routes to those experts instead, weighted by its
+    own renormalised probabilities. Returns (fn's result, [(logits,
+    experts) a layer])."""
+    import repro_torch.models.transformer as tr
+    from repro_torch.models import moe
+
+    serve_moe, route, trace = tr.moe_apply, moe.route, []
+
+    def probe(x, p, cfg_, group_size=4096):
+        h = x.reshape(-1, x.shape[-1])
+        probs, weights, idx = route(h, p["router"], cfg_.top_k)
+        if pinned is not None:
+            idx = pinned[len(trace)]
+            weights = probs.gather(-1, idx)
+            weights = weights / weights.sum(-1, keepdim=True)
+        trace.append((h.float() @ p["router"], idx))
+        moe.route = lambda *_: (probs, weights, idx)
+        try:
+            return serve_moe(x, p, cfg_, group_size)
+        finally:
+            moe.route = route
+
+    tr.moe_apply = probe
+    try:
+        return fn(), trace
+    finally:
+        tr.moe_apply = serve_moe
+
+
+def router_flips(trace_b, traces_a, k):
+    """Per stream, the first layer whose experts differ between the batched
+    step and the stream alone: the alone router's logit gap between its
+    k-th and (k+1)-th experts, and how far the router logits moved between
+    the two runs. An expert kept alone and dropped batched outranks one
+    dropped alone by at least the gap, and ranks below it batched, so a
+    flip of the same rows' top-k needs the gap within twice the shift;
+    the caller fails otherwise."""
+    flips = []
+    for i, trace_a in enumerate(traces_a):
+        layer = next((j for j, ((_, eb), (_, ea)) in enumerate(zip(trace_b, trace_a))
+                      if not torch.equal(eb[i].sort().values, ea[0].sort().values)), None)
+        if layer is None:
+            flips.append(None)
+            continue
+        rb, ra = trace_b[layer][0][i], trace_a[layer][0][0]
+        top = ra.sort(descending=True).values
+        flips.append({"layer": layer, "router_gap_at_k": (top[k - 1] - top[k]).item(),
+                      "router_shift": (rb - ra).abs().max().item()})
+    return flips
+
+
+def phase_moe_serve(cfg, model, prompts, max_new, card, n):
+    """Under ``dropless_moe()`` (the serving mode): each request prefilled
+    alone (B=1) through the flash-prefill kernel, the caches joined on the
+    batch axis, greedy decode at B=8; then a decode step's device-to-host
+    syncs, decode steps and a batched 8 x 512 prefill under the profiler.
+
+    B=8 and B=1 round the hidden states apart, and where a router's gap
+    at its k-th expert is below that, a token goes to another expert, which
+    moves the logits by more than a near-tie. So the first batched step is
+    held to three rules: where a stream's experts differ from its own
+    alone, the first such layer's router gap at the k-th expert is within
+    twice the router logits' shift (a flip, not a routing fault); every
+    stream alone routed to the batched step's experts agrees with it by
+    phase 9's rule (tokens equal outside near-ties); and so does every
+    stream whose experts never differ, on its own routing."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.models.moe import dropless_moe
+
+    dev, B = model.device, len(prompts)
+    # room for the profiled steps after the main path's
+    cache_len = max(len(p) for p in prompts) + max_new + 8
+    with dropless_moe():
+        flash_prefill_cuda.launches = 0
+        caches, first, prefill_ms = [], [], []
+        for prompt in prompts:
+            toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(toks, cache_len=cache_len)
+            sync(dev)
+            prefill_ms.append(1e3 * (time.perf_counter() - t0))
+            if not torch.isfinite(logits).all():
+                fail(f"{cfg.name} prefill produced non-finite logits")
+            first.append(int(logits[0].argmax()))
+            caches.append(cache)
+        cache = tree_cat(caches, dim=1)       # leaves are (L, B, ...): batch is axis 1
+        tok = torch.tensor(first, dtype=torch.int32, device=dev)
+        pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+        (logits, cache), trace_b = routed(lambda: model.decode_step(tok, pos, cache))
+        if not torch.isfinite(logits).all():
+            fail(f"{cfg.name} decode step 0 produced non-finite logits")
+        alone, traces_a = zip(*(routed(lambda i=i: model.decode_step(
+            tok[i:i + 1], pos[i:i + 1], caches[i])[0]) for i in range(B)))
+        alone = torch.cat(alone)
+        flips = router_flips(trace_b, traces_a, cfg.top_k)
+        if wide := [(i, f) for i, f in enumerate(flips)
+                    if f and f["router_gap_at_k"] > 2 * f["router_shift"]]:
+            fail(f"{cfg.name}: experts differ between B={B} and B=1 where the router's gap "
+                 f"exceeds twice the shift of its logits (a routing fault, not a flip): "
+                 f"(stream, layer, gap, shift) "
+                 f"{[(i, f['layer'], f['router_gap_at_k'], f['router_shift']) for i, f in wide]}")
+        pinned = torch.cat([routed(lambda i=i: model.decode_step(
+            tok[i:i + 1], pos[i:i + 1], caches[i])[0],
+            pinned=[e[i:i + 1] for _, e in trace_b])[0] for i in range(B)])
+        del caches, trace_b, traces_a
+        batch_err = (logits - pinned).abs().max().item()
+        batch_ties = first_step_ties(logits, pinned)
+        same = [i for i, f in enumerate(flips) if f is None]
+        same_ties = first_step_ties(logits[same], alone[same], streams=same)
+        free = {"top1_equal": int((logits.argmax(-1) == alone.argmax(-1)).sum()),
+                "max_abs_err": (logits - alone).abs().max().item()}
+        streams = [tok, logits.argmax(-1).to(torch.int32)]
+        sync(dev)
+        t0 = time.perf_counter()
+        for k in range(1, max_new):
+            logits, cache = model.decode_step(streams[-1], pos + k, cache)
+            if not torch.isfinite(logits).all():
+                fail(f"{cfg.name} decode step {k} produced non-finite logits")
+            streams.append(logits.argmax(-1).to(torch.int32))
+        sync(dev)
+        t_decode = time.perf_counter() - t0
+        launches = flash_prefill_cuda.launches
+        if launches != cfg.num_layers * B:
+            fail(f"flash_prefill launched {launches} times, expected "
+                 f"{cfg.num_layers} x {B} prefill calls")
+        tokens = torch.stack(streams, dim=1).tolist()
+        if [t[0] for t in tokens] != first:
+            fail("a stream does not start from the argmax of its own prefill")
+
+        state = {"tok": streams[-1], "k": max_new}
+
+        def step():
+            logits, _ = model.decode_step(state["tok"], pos + state["k"], cache)
+            state["tok"] = logits.argmax(-1).to(torch.int32)
+            state["k"] += 1
+
+        syncs = count_syncs(step)
+        n_syncs = sum(syncs.values())
+        prof = profile_steps(step, dev, steps=3)
+        toks = torch.randint(1, cfg.vocab_size, (8, 512), dtype=torch.int32, device=dev)
+        prefill_prof = profile_steps(lambda: model.prefill(toks), dev, steps=2,
+                                     watch="flash_prefill")
+    del cache
+    torch.cuda.empty_cache()
+    step_ms = 1e3 * t_decode / (max_new - 1)
+    flip_text = [f and (f["layer"], round(f["router_gap_at_k"], 5), round(f["router_shift"], 5))
+                 for f in flips]
+    info = {"prompt_lens": [len(p) for p in prompts], "cache_len": cache_len,
+            "prefill_ms": prefill_ms, "launches": launches,
+            "batched_vs_alone_max_abs_err": batch_err,
+            "batched_vs_alone_near_ties": batch_ties,
+            "routed_alone": dict(free, router_flips=flips, unflipped_streams=same,
+                                 unflipped_near_ties=same_ties),
+            f"decode_step_ms_b{B}": step_ms, f"decode_tokens_per_s_b{B}": 1e3 * B / step_ms,
+            "decode_syncs_per_step": n_syncs, "decode_syncs_by_line": syncs,
+            "decode_profile": prof,
+            "prefill_8x512_profile": prefill_prof}
+    log(f"phase {n} {cfg.name} main path (dropless) on {card}: {B} prefills alone (lengths "
+        f"{info['prompt_lens']}), flash_prefill launches {launches} = {cfg.num_layers} x {B}, "
+        f"prefill ms {[round(t, 1) for t in prefill_ms]}; caches joined, {max_new} greedy "
+        f"steps at B={B}: logits finite, first step vs each stream alone with the batched "
+        f"step's experts: tokens equal but at near-ties {batch_ties}, max |Δlogit| "
+        f"{batch_err:.3e}; each stream alone on its own routing: experts differ from the "
+        f"batched step's first at (layer, router gap at the k-th expert, router logit shift "
+        f"B={B} vs B=1) {flip_text}, each gap within twice its shift; streams {same} never "
+        f"differ and their tokens equal the batched step's but at near-ties {same_ties}; "
+        f"top-1 equal in {free['top1_equal']}/{B} rows, max |Δlogit| {free['max_abs_err']:.3e}; "
+        f"decode step {step_ms:.2f} ms (the {max_new - 1} steps after the first), "
+        f"{info[f'decode_tokens_per_s_b{B}']:.1f} tokens/s")
+    log(f"phase {n} where a {cfg.name} decode step goes on {card} (B={B}, dropless; "
+        f"{n_syncs} device-to-host syncs a step, by line {syncs}; {prof['steps']} steps, then "
+        "the same under the "
+        f"profiler): {profile_line(prof)}; prefill 8x512 (2 steps, then 2 under the profiler): "
+        f"{profile_line(prefill_prof)}; flash_prefill {prefill_prof['watch_ms_per_step']:.2f} "
+        "ms a prefill")
+    return info
+
+
+def phase_moe_capacity(cfg, model, rng, card, n, B=8, S=512):
+    """A B x S prefill with capacity routing at the configured factor (one
+    group of B·S tokens): the slots each MoE layer drops. On the same input
+    each layer's capacity path at factor E/k (capacity = the group, nothing
+    drops) must equal the dropless path's output: the same rows through
+    the same expert products (a batched product over the (E, C) buffer
+    against one an expert, each output row its own dot products), the
+    gate rounded alike and each token's outputs added in expert order by
+    both. Each token's difference relative to its norm is printed beside
+    it as a diagnostic."""
+    from dataclasses import replace
+
+    import repro_torch.models.transformer as tr
+    from repro_torch.models import moe
+
+    E, k = cfg.num_experts, cfg.top_k
+    G = B * S
+    C = max(1, int(k * G / E * cfg.capacity_factor))
+    full = replace(cfg, capacity_factor=E / k)
+    layers = []
+    serve_moe = tr.moe_apply
+
+    def probe(x, p, cfg_, group_size=4096):
+        if x.shape[0] * x.shape[1] != G or group_size < G:
+            fail(f"the capacity probe expects one group of {G} tokens")
+        y, aux = serve_moe(x, p, cfg_, group_size)
+        _, _, idx = moe.route(x.reshape(1, G, -1), p["router"], k)
+        flat = idx.reshape(1, G * k)
+        keep = moe.capacity_slots(flat, E, C)[2]
+        keep_full = moe.capacity_slots(flat, E, G)[2]
+        y_full, _ = serve_moe(x, p, full, group_size)
+        with moe.dropless_moe():
+            y_dl, _ = serve_moe(x, p, cfg_, group_size)
+        d, ref = (y_full.float() - y_dl.float()).reshape(G, -1), y_dl.float().reshape(G, -1)
+        apart = (d.norm(dim=-1) / ref.norm(dim=-1)).max().item()
+        layers.append({"dropped": int((~keep).sum()), "dropped_at_E_over_k":
+                       int((~keep_full).sum()), "max_abs_err": d.abs().max().item(),
+                       "max_abs_ref": ref.abs().max().item(), "tokens_apart": apart,
+                       "elements_equal": (d == 0).float().mean().item()})
+        return y, aux
+
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S)).astype(
+        np.int32)).to(model.device)
+    tr.moe_apply = probe
+    try:
+        logits, _ = model.prefill(toks)
+    finally:
+        tr.moe_apply = serve_moe
+    if len(layers) != cfg.num_layers:
+        fail(f"the capacity probe saw {len(layers)} MoE layers, expected {cfg.num_layers}")
+    if not torch.isfinite(logits).all():
+        fail(f"{cfg.name} capacity prefill produced non-finite logits")
+    if any(l["dropped_at_E_over_k"] for l in layers):
+        fail(f"slots drop at factor E/k: {[l['dropped_at_E_over_k'] for l in layers]}")
+    if bad := [i for i, l in enumerate(layers) if l["max_abs_err"] != 0]:
+        fail(f"{cfg.name} layers {bad}: the capacity path at factor E/k differs from the "
+             f"dropless path by up to {max(layers[i]['max_abs_err'] for i in bad):.3e}, a "
+             f"token's output by {max(layers[i]['tokens_apart'] for i in bad):.3e} of its norm")
+    share = [l["dropped"] / (G * k) for l in layers]
+    err = max(l["max_abs_err"] for l in layers)
+    apart = max(l["tokens_apart"] for l in layers)
+    equal = min(l["elements_equal"] for l in layers)
+    log(f"phase {n} {cfg.name} capacity path on {card}: a {B} x {S} prefill at factor "
+        f"{cfg.capacity_factor:g} (capacity {C} of a {G}-token group) drops "
+        f"{100 * sum(share) / len(share):.2f}% of its slots (by layer "
+        f"{min(share):.3f}-{max(share):.3f}); at factor E/k = {E / k:g} nothing drops and "
+        f"each of the {len(layers)} MoE layers' outputs equals the dropless path's on the "
+        f"same input: max |err| {err:.3e} (must be 0; max |output| "
+        f"{max(l['max_abs_ref'] for l in layers):.3e}), {100 * equal:.2f}% of the elements "
+        f"equal, each token within {apart:.3e} of its norm")
+    return {"capacity": C, "group": G, "dropped_share": sum(share) / len(share),
+            "dropped_share_by_layer": share, "max_abs_err_full_vs_dropless": err,
+            "max_token_apart_full_vs_dropless": apart, "layers": layers}
+
+
+def phase_moe_teacher_forced(cfg, layers, rng, card, n, K=200, steps=8):
+    """An fp32 model of the first ``layers`` layers (drawn from the served
+    model's seed, so its weights are the served ones in fp32) under
+    ``dropless_moe()``: each decode step against a prefill of the prefix
+    plus that token through the flash-prefill kernel in fp32."""
+    from dataclasses import replace
+
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.models import build_model
+    from repro_torch.models.moe import dropless_moe
+
+    cfg_s = replace(cfg, num_layers=layers)
+    m32 = build_model(cfg_s).init(torch.Generator("cuda").manual_seed(0)).float()
+    dev = m32.device
+    gb = sum(p.numel() * p.element_size() for p in m32.parameters()) / 1e9
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(2, K + steps)).astype(
+        np.int32)).to(dev)
+    n0 = flash_prefill_cuda.launches
+    errs = []
+    with dropless_moe():
+        logits, cache = m32.prefill(toks[:, :K], cache_len=K + steps)
+        for t in range(K, K + steps):
+            ref, _ = m32.prefill(toks[:, : t + 1])
+            logits, cache = m32.decode_step(toks[:, t], torch.full((2,), t, dtype=torch.int32,
+                                                                   device=dev), cache)
+            errs.append((logits - ref).abs().max().item())
+            if not torch.equal(logits.argmax(-1), ref.argmax(-1)):
+                fail(f"fp32 decode step {t} picks another token than the prefill of its prefix")
+    if flash_prefill_cuda.launches - n0 != layers * (steps + 1):
+        fail("the fp32 prefills did not all run the flash-prefill kernel")
+    err = max(errs)
+    if err > TOL_TF:
+        fail(f"fp32 decode vs prefill max |err| {err:.3e} > {TOL_TF:g}")
+    del m32, cache
+    torch.cuda.empty_cache()
+    log(f"phase {n} {cfg.name} fp32 teacher forcing on {card} (dropless): first {layers} of "
+        f"{cfg.num_layers} layers ({gb:.1f} GB in fp32, the served weights), B=2, prefill {K} "
+        f"tokens, {steps} decode steps each against a kernel prefill of its prefix: max |err| "
+        f"{err:.3e} (atol {TOL_TF:g}), argmax equal")
+    return {"layers": layers, "gb_fp32": gb, "max_abs_err": err, "per_step": errs}
+
+
+def phase_moe(cfg, prompts, rng, card, n, tf_layers):
+    """One MoE configuration at full width and depth, random weights from
+    seed 0: the main path, the capacity path, then (its bf16 weights freed)
+    fp32 teacher forcing over its first ``tf_layers`` layers."""
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: {cfg.name} {cfg.num_layers} layers, {cfg.num_experts} experts (top "
+        f"{cfg.top_k}), {n_params / 1e9:.2f} B params ({2 * n_params / 1e9:.1f} GB in bf16; "
+        f"analytic {cfg.param_count() / 1e9:.2f} B), initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    serve = phase_moe_serve(cfg, model, prompts, MAX_NEW, card, n)
+    capacity = phase_moe_capacity(cfg, model, rng, card, n)
+    del model
+    torch.cuda.empty_cache()
+    tf = phase_moe_teacher_forced(cfg, tf_layers, rng, card, n)
+    return {"params": n_params, "serve": serve, "capacity": capacity, "teacher_forced": tf,
+            "longest_prompt": max(len(p) for p in prompts)}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -1859,6 +2249,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     fam_times = phase_family_times(gen, fams, card)
 
+    # the MoE families: K3 at their prefill shapes, then each model
+    moe_cfgs = {name: get_config(name) for name in MOE_ARCHS}
+    moe_prompts = {name: make_prompts(rng, 8, c.vocab_size) for name, c in moe_cfgs.items()}
+    moe_k3 = phase_moe_kernels(gen, {name: (max(len(p) for p in moe_prompts[name]),
+                                            c.num_heads, c.num_kv_heads, c.head_dim)
+                                     for name, c in moe_cfgs.items()}, card)
+    errs["flash_prefill"] = max(errs["flash_prefill"], moe_k3["max_abs_err"])
+    moes = {name: phase_moe(c, moe_prompts[name], rng, card, n, MOE_ARCHS[name])
+            for n, (name, c) in enumerate(moe_cfgs.items(), start=22)}
+
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention/kernel.py:189"),
@@ -1883,6 +2283,7 @@ def main() -> int:
         **{name: {"paged_attention": f["serve"]["launches"],
                   "flash_prefill": f["serve"]["flash_prefill_launches"],
                   **f["transfer"]["launches"]} for name, f in fams.items()},
+        **{name: {"flash_prefill": m["serve"]["launches"]} for name, m in moes.items()},
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1903,7 +2304,7 @@ def main() -> int:
               "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,
               "gemma_teacher_forced": g_tf, "gemma_times": g_times, "rpc": rpc,
               "new_layouts": new, "families": fams, "family_times": fam_times,
-              "kernels": kernels}
+              "moe_kernels": moe_k3, "moe": moes, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

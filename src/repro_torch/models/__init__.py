@@ -1,4 +1,4 @@
-"""Dense and Mamba-2 SSM models: config, layers, attention, SSM, stack, Model."""
+"""Dense, vlm, MoE and Mamba-2 SSM models: config, layers, attention, SSM, stack, Model."""
 
 from .config import LayerSpec, ModelConfig
 from .model import Model, build_model

@@ -2,8 +2,8 @@
 
 The field set is the reference package's, so a config built here names
 the same architecture; the port serves the dense family (``rmsnorm``,
-``rope``, ``swiglu``) and the Mamba-2 SSM family (``d_inner``,
-``ssm_heads``). ``block_pattern()`` factors the layer stack into a
+``rope``, ``swiglu``), its vlm and moe variants and the Mamba-2 SSM
+family (``d_inner``, ``ssm_heads``). ``block_pattern()`` factors the layer stack into a
 repeating *super-block*; the stacked parameters carry one leading layer
 axis per pattern position.
 """
@@ -133,7 +133,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + per-layer), the
-        reference's formula for the ported families (dense, ssm)."""
+        reference's formula for the ported families (dense, vlm, moe,
+        ssm)."""
         d, v = self.d_model, self.vocab_size
         total = d * v
         if not self.tie_embeddings:
@@ -149,7 +150,10 @@ class ModelConfig:
                 total += (di + 2 * ds) * self.ssm_conv  # conv
                 total += 2 * h                          # A_log, D
                 total += di * d                         # out_proj
-            if self.d_ff:
+            if spec.moe:
+                total += d * self.num_experts                     # router
+                total += self.num_experts * 3 * d * self.moe_d_ff
+            elif self.d_ff:
                 total += (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
             total += 2 * d  # norms (approx)
         return total

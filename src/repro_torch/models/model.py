@@ -1,4 +1,4 @@
-"""Top-level Model for the dense, vlm (Qwen2-VL's backbone) and SSM
+"""Top-level Model for the dense, vlm (Qwen2-VL's backbone), moe and SSM
 families: init, prefill, decode.
 
 ``Model`` is an ``nn.ModuleDict`` whose parameter tree has the reference
@@ -39,17 +39,19 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise for any architecture feature outside the ported families:
     dense (RoPE, SwiGLU; optionally gemma's RMSNorm, OLMo's LayerNorm,
     q/k/v biases, qk-norm, sliding windows and a logit softcap), vlm (the
-    same with M-RoPE) and Mamba-2 SSM (no positions). MoE, encoders and
-    the hybrid stay refused."""
-    rope = {"dense": "rope", "vlm": "mrope", "ssm": "none"}
+    same with M-RoPE), moe (the dense family's attention with an MoE FFN)
+    and Mamba-2 SSM (no positions). Encoders and the hybrid stay
+    refused."""
+    rope = {"dense": "rope", "vlm": "mrope", "moe": "rope", "ssm": "none"}
+    moe = cfg.family == "moe"
     unported = [
         name for name, bad in (
-            ("family", cfg.family not in rope),
+            (f"family {cfg.family!r}", cfg.family not in rope),
             ("norm_kind", cfg.norm_kind not in NORM_KINDS),
             ("rope_kind", cfg.rope_kind != rope.get(cfg.family)),
             ("mlp_kind", cfg.mlp_kind != "swiglu"),
             ("encoder_layers", bool(cfg.encoder_layers)),
-            ("num_experts", bool(cfg.num_experts)),
+            ("num_experts", bool(cfg.num_experts) != moe),
         ) if bad]
     if unported:
         raise NotImplementedError(
@@ -121,9 +123,9 @@ class Model(nn.ModuleDict):
             raise ValueError(f"{cfg.name}: caller positions are M-RoPE's "
                              f"(3, {B}, {S}) streams, got {tuple(positions.shape)} "
                              f"for rope kind {cfg.rope_kind!r}")
-        x, cache = apply_stack_full(x, self["stack"], cfg, positions,
-                                    want_cache=True, cache_len=cache_len,
-                                    caller_positions=given)
+        x, _, cache = apply_stack_full(x, self["stack"], cfg, positions,
+                                       want_cache=True, cache_len=cache_len,
+                                       caller_positions=given)
         x = apply_norm(x[:, -1:], self["norm_f"], cfg.norm_kind, cfg.norm_eps)
         return unembed(x, self["embed"])[:, 0].float(), cache
 

@@ -1,13 +1,15 @@
 """Decoder stack: dense self-attention layers (global or sliding-window,
-as gemma3's 5:1 local:global super-block) and Mamba-2 SSM layers.
+as gemma3's 5:1 local:global super-block) and Mamba-2 SSM layers, with a
+dense SwiGLU FFN or a mixture-of-experts FFN (``moe.py``).
 
 Parameters for each super-block position are stacked over blocks with a
 leading layer axis (``stack.pos0.attn.wq`` is ``(L, d, H, Dh)``), as in
 the reference; the reference's ``lax.scan`` over that axis becomes a
 Python loop over layer slices (views, no copies). A layer has an MLP
-only when ``d_ff > 0`` (an SSM layer of mamba2 has none). A norm's
-subtree is empty for OLMo's non-parametric LayerNorm. A windowed
-position's cache leaves are rings of ``min(window, cache_len)`` slots.
+only when ``d_ff > 0`` (an SSM layer of mamba2 has none); an MoE layer
+has an MoE FFN in its place. A norm's subtree is empty for OLMo's
+non-parametric LayerNorm. A windowed position's cache leaves are rings
+of ``min(window, cache_len)`` slots.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from .attention import attention_decode, attention_full, empty_cache, init_attention
 from .config import LayerSpec, ModelConfig
 from .layers import apply_norm, init_mlp, init_norm, mlp_apply
+from .moe import init_moe, moe_apply
 from .ssm import empty_ssm_state, init_ssm, ssm_decode_step, ssm_forward
 
 Params = Dict[str, Any]
@@ -35,11 +38,12 @@ def tree_index(tree, i: int):
 
 
 def _check_ported(spec: LayerSpec) -> None:
-    if spec.kind not in ("attn", "ssm") or spec.moe or spec.cross_attn:
+    if spec.kind not in ("attn", "ssm") or spec.cross_attn or (
+            spec.moe and spec.kind != "attn"):
         raise NotImplementedError(
             f"layer {spec} is not ported: the port serves self-attention "
-            "(global or sliding-window) and SSM layers without MoE or "
-            "cross-attention")
+            "(global or sliding-window) layers with a dense or MoE FFN and "
+            "SSM layers without MoE, and no cross-attention")
 
 
 # ---------------------------------------------------------------------------
@@ -52,23 +56,32 @@ def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device=None) -> Params:
         p["attn"] = init_attention(gen, cfg, device)
     else:
         p["ssm"] = init_ssm(gen, cfg, device)
-    if cfg.d_ff > 0:
+    if spec.moe or cfg.d_ff > 0:
         p["norm_mlp"] = init_norm(cfg.d_model, cfg.norm_kind, device)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, device)
+        if spec.moe:
+            p["moe"] = init_moe(gen, cfg, device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_kind, device)
     return p
 
 
-def _mlp_residual(x, p, cfg: ModelConfig):
-    if "mlp" not in p:
-        return x
+def _ffn_residual(x, p, cfg: ModelConfig):
+    """x plus the layer's FFN (dense or MoE) of its normed input. Returns
+    (x, aux): the MoE layer's load-balancing loss, else ``None``."""
+    if "mlp" not in p and "moe" not in p:
+        return x, None
     h = apply_norm(x, p.get("norm_mlp"), cfg.norm_kind, cfg.norm_eps)
-    return x + mlp_apply(h, p["mlp"], cfg.mlp_kind)
+    if "moe" in p:
+        m, aux = moe_apply(h, p["moe"], cfg)
+        return x + m, aux
+    return x + mlp_apply(h, p["mlp"], cfg.mlp_kind), None
 
 
 def apply_layer_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
                      want_cache: bool = False, cache_len: int = 0,
                      caller_positions: bool = False):
-    """Prefill application. Returns (x, cache)."""
+    """Prefill application. Returns (x, aux, cache); ``aux`` is the MoE
+    load-balancing loss, ``None`` for a layer without MoE."""
     h = apply_norm(x, p.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
     if spec.kind == "attn":
         a, c = attention_full(h, p["attn"], cfg, spec, positions,
@@ -78,14 +91,14 @@ def apply_layer_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
     else:
         a, c = ssm_forward(h, p["ssm"], cfg, want_state=want_cache)
         key = "ssm"
-    x = _mlp_residual(x + a, p, cfg)
-    return x, ({key: c} if want_cache else {})
+    x, aux = _ffn_residual(x + a, p, cfg)
+    return x, aux, ({key: c} if want_cache else {})
 
 
 def apply_layer_decode(x, p, cfg: ModelConfig, spec: LayerSpec,
                        cache: Params, pos):
     """One-token decode. Returns x; ``cache`` is updated in place (each
-    leaf keeps its dtype)."""
+    leaf keeps its dtype). The MoE aux loss is dropped."""
     h = apply_norm(x, p.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
     if spec.kind == "attn":
         a, _ = attention_decode(h, p["attn"], cfg, spec, cache["self"], pos)
@@ -93,7 +106,7 @@ def apply_layer_decode(x, p, cfg: ModelConfig, spec: LayerSpec,
         a, new = ssm_decode_step(h, p["ssm"], cfg, cache["ssm"])
         for k, v in new.items():
             cache["ssm"][k].copy_(v)
-    return _mlp_residual(x + a, p, cfg)
+    return _ffn_residual(x + a, p, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -132,23 +145,27 @@ def _copy_into(stacked, layer, b: int) -> None:
 def apply_stack_full(x, stack, cfg: ModelConfig, positions,
                      want_cache: bool = False, cache_len: int = 0,
                      caller_positions: bool = False):
-    """Returns (x, cache) with cache leaves stacked (L, B, cache_len, ...).
+    """Returns (x, aux, cache): ``aux`` the MoE layers' load-balancing
+    losses summed (0-d fp32), cache leaves stacked (L, B, cache_len, ...).
     ``positions``: (B, S), or (3, B, S) for M-RoPE; ``caller_positions``
     selects the attention path (``attention_full``)."""
     pattern = cfg.block_pattern()
     per_block: List[Params] = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for b in range(cfg.num_blocks):
         caches = {}
         for i, spec in enumerate(pattern):
-            x, c = apply_layer_full(x, tree_index(stack[f"pos{i}"], b), cfg,
-                                    spec, positions, want_cache=want_cache,
-                                    cache_len=cache_len,
-                                    caller_positions=caller_positions)
+            x, a, c = apply_layer_full(x, tree_index(stack[f"pos{i}"], b), cfg,
+                                       spec, positions, want_cache=want_cache,
+                                       cache_len=cache_len,
+                                       caller_positions=caller_positions)
+            if a is not None:
+                aux = aux + a
             caches[f"pos{i}"] = c
         per_block.append(caches)
     if not want_cache:
-        return x, None
-    return x, _stack_trees(per_block)
+        return x, aux, None
+    return x, aux, _stack_trees(per_block)
 
 
 def _stack_trees(trees: List[Params]) -> Params:

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels, its paged decode, its Mamba-2 prefill and its
-gemma3 prefill and decode on the card, held against the port's plain
-PyTorch versions on the same inputs. Needs a CUDA card
+"""The port's CUDA kernels, its paged decode, its Mamba-2 prefill, and its
+gemma3 and MoE prefill and decode on the card, held against the port's
+plain PyTorch versions on the same inputs. Needs a CUDA card
 and nvcc; skips without one. Imports nothing of jax, so it also runs on a
 machine with the card and no jax:
 
@@ -586,3 +586,45 @@ def test_gemma3_prefill_and_decode_on_card_match_cpu(dev):
         torch.testing.assert_close(ld.cpu(), lc, **TOL[torch.bfloat16])
     for i in range(cfg.num_layers):
         assert torch.equal(cd[f"pos{i}"]["self"]["pos"].cpu(), cc[f"pos{i}"]["self"]["pos"])
+
+
+# -- the MoE families ----------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Hq,Hkv,D", [(16, 8, 64), (32, 4, 128)])
+def test_flash_prefill_kernel_at_moe_prefill_shapes(dev, Hq, Hkv, D, dtype):
+    """granite-moe-1b-a400m's (16/8 at head_dim 64) and qwen3-moe-30b-a3b's
+    (32/4 at 128) prefill of a 509-token prompt, at K1's kernel tolerance."""
+    q, k, v = [t.to(dev) for t in _k3_inputs(1, 509, Hq, Hkv, D, dtype, seed=D)]
+    n0 = flash_prefill_cuda.launches
+    got = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_prefill_cuda.launches == n0 + 1
+    want = flash_prefill_ref(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), **K1_TOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b"])
+@pytest.mark.parametrize("dropless", [False, True], ids=["capacity", "dropless"])
+def test_moe_prefill_and_decode_on_card_match_cpu(dev, arch, dropless):
+    """The smoke config at head_dim 64 (the kernel's smallest): a prefill
+    through the kernel and 6 decode steps on the card, with capacity
+    routing or under ``dropless_moe()``, against the same model on the
+    CPU."""
+    from repro_torch.models.moe import dropless_moe
+
+    cfg = replace(get_smoke_config(arch), head_dim=64)
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, size=(2, 26)).astype(np.int32))
+    model_d = copy.deepcopy(model).to(dev)
+    with dropless_moe(dropless):
+        lc, cc = model.prefill(toks[:, :20], cache_len=26)
+        n0 = flash_prefill_cuda.launches
+        ld, cd = model_d.prefill(toks[:, :20].to(dev), cache_len=26)
+        assert flash_prefill_cuda.launches == n0 + cfg.num_layers
+        torch.testing.assert_close(ld.cpu(), lc, **TOL[torch.bfloat16])
+        for t in range(20, 26):
+            pos = torch.full((2,), t, dtype=torch.int32)
+            lc, cc = model.decode_step(toks[:, t], pos, cc)
+            ld, cd = model_d.decode_step(toks[:, t].to(dev), pos.to(dev), cd)
+            torch.testing.assert_close(ld.cpu(), lc, **TOL[torch.bfloat16])

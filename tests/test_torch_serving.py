@@ -4,6 +4,8 @@ token streams on the same weights and prompts, for each configuration
 the paged engine serves (yi-9b, olmo-1b, yi-6b and qwen2-vl-7b at smoke
 size; qwen2-vl's q/k/v biases set nonzero on both sides)."""
 
+import time
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -22,7 +24,7 @@ from repro.serving.kv_pool import transfer_pages_cross_pod as jax_transfer  # no
 from repro.serving.paged_model import paged_decode_step as jax_step  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.convert import array_from_numpy  # noqa: E402
-from repro_torch.core.channel import E_EXCEPTION, RpcError  # noqa: E402
+from repro_torch.core.channel import E_EXCEPTION, BusyWaitPolicy, RpcError  # noqa: E402
 from repro_torch.core.errors import ChannelError, Overloaded  # noqa: E402
 from repro_torch.core.orchestrator import Orchestrator  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -346,3 +348,35 @@ class _PageView:
 
     def to_python(self):
         return list(self._pages)
+
+
+# -- idle back-off -------------------------------------------------------------------
+def test_idle_ticks_back_off_as_the_reference(monkeypatch):
+    """Two requests keep ``step`` busy for a few ticks, then it idles: each
+    idle tick sleeps once, for what a ``BusyWaitPolicy`` fed the same
+    ticks prescribes (150 µs while the recent load is above 1/2, then 5
+    µs, then a bare yield), and the reference's engine sleeps the same."""
+    jcfg, tcfg = jax_smoke("yi_9b"), get_smoke_config("yi_9b")
+    params = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    tm = build_model(tcfg).load_params(jax.tree.map(np.asarray, params), device="cpu")
+    engines = {"reference": JaxEngine(jcfg, params, JaxPoolConfig(**POOL), backend="ref"),
+               "port": ServeEngine(tcfg, tm, PoolConfig(**POOL), device="cpu")}
+    sleeps = []
+    monkeypatch.setattr(time, "sleep", sleeps.append)
+    runs = {}
+    for name, eng in engines.items():
+        sleeps.clear()
+        for prompt in _prompts(2):
+            eng.submit(prompt, max_new=6)
+        ticks = [eng.step() for _ in range(40)]
+        policy, want = BusyWaitPolicy(), []
+        for worked in ticks:
+            policy.record(worked)
+            if not worked:
+                want.append(policy.delay_s())
+        assert sleeps == want, name
+        runs[name] = (ticks, list(sleeps))
+    assert runs["port"] == runs["reference"]
+    ticks, got = runs["port"]
+    assert ticks == [True] * 5 + [False] * 35
+    assert [d for i, d in enumerate(got) if i == 0 or d != got[i - 1]] == [150e-6, 5e-6, 0.0]
