@@ -108,6 +108,29 @@ before the result line is printed:
 23. qwen3-moe-30b-a3b at full width and depth (48 layers, 128 experts,
     top-8; 61 GB in bf16) the same, its fp32 teacher forcing over its
     first 24 layers (all 48 would take ~122 GB);
+24. the flash-prefill and SSD kernels against their plain versions at
+    jamba-v0.1-52b's shapes (K3: B=1, the longest prompt, 32/8 heads at
+    head_dim 128; K4: B 8, S 512, 128 heads, P 64, state 16, chunk 128,
+    chunk decays above 88), bf16 and f32, and timed beside their bounds,
+    their plain versions and (K3) SDPA;
+25. jamba-v0.1-52b at full width and 16 of its 32 layers (two 8-layer
+    super-blocks: 2 attention layers without positions, 14 SSM layers, 8
+    MoE FFNs of 16 experts top-2; 25.73 B parameters, 51.5 GB in bf16),
+    random weights from a seed, under ``dropless_moe()``, as phases 22
+    and 23: 8 requests prefilled alone (K3 2 and K4 14 launches each),
+    caches joined, 16 greedy steps at B=8 under the router near-tie rule,
+    a step's syncs and profile, an 8 x 512 prefill under the profiler;
+26. its capacity path: an 8 x 512 prefill at factor 1.25 with each MoE
+    layer's dropped slots, and at factor E/k each layer's output bitwise
+    the dropless one;
+27. one 16,384-token prompt at B=1: time to first token, the prefill's
+    device busy and K3's and K4's device time under the profiler, the
+    chunked scan outside K4 (inter-chunk recurrence, off-diagonal term)
+    from CUDA events, and 16 decode steps;
+28. fp32 teacher forcing over one super-block (8 layers, 52.0 GB in
+    fp32, the bf16 model freed first), each step against a kernel
+    prefill of its prefix within 1e-3 and with the same argmax; peak
+    device memory after each of phases 25-28;
 
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
@@ -174,6 +197,12 @@ NEW_LAYOUTS = {"olmo-1b": (16, 16), "qwen2-vl-7b": (28, 4)}
 MOE_ARCHS = {"granite-moe-1b-a400m": 24, "qwen3-moe-30b-a3b": 24}
 K3_TIMED = {"yi9b_S471": (1, 471, 32, 4, 128, 0), "gemma3_global_S4096": (1, 4096, 16, 8, 256, 0),
             "gemma3_local_S4096": (1, 4096, 16, 8, 256, 1024)}
+# jamba-v0.1-52b: 16 of its 32 layers (its 51.19 B parameters are 102.4 GB in
+# bf16; 16 layers hold 25.73 B, 51.5 GB), fp32 teacher forcing over one
+# super-block of 8 (13.00 B, 52.0 GB in fp32), one prompt of 16,384 tokens
+JAMBA_LAYERS, JAMBA_TF_LAYERS, JAMBA_LONG = 16, 8, 16384
+# jamba's SSD at the batched prefill of 8 x 512 tokens: 128 heads, state 16
+JAMBA_SSD_SHAPE = dict(B=8, S=512, H=128, P=64, N=16, Q=128)
 
 
 def log(msg: str) -> None:
@@ -498,10 +527,11 @@ def phase_serve(cfg, model, prompts, extra, max_new, label="phase 3 main path"):
     return eng, streams + results, info
 
 
-def profile_steps(step, dev, steps=4, watch=""):
+def profile_steps(step, dev, steps=4, watch=()):
     """``steps`` calls of ``step`` timed on the host clock, then the same
     under torch.profiler: device time by kernel against the host clock,
-    and the device time of the kernels whose name holds ``watch``.
+    and, for each name in ``watch``, the device time of the kernels whose
+    name holds it.
     Only device events are summed: an operator's own entry also carries
     the time of the kernels it launched, which would count them twice."""
     from torch.autograd import DeviceType
@@ -528,8 +558,7 @@ def profile_steps(step, dev, steps=4, watch=""):
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "launches_per_step": sum(c for _, _, c in kernels),
-            "watch_ms_per_step": (sum(t for k, t, _ in kernels if watch in k)
-                                  if watch else None),
+            "watch_ms_per_step": {w: sum(t for k, t, _ in kernels if w in k) for w in watch},
             "top_kernels_ms_per_step": [(k[:80], t) for k, t, _ in top]}
 
 
@@ -553,12 +582,12 @@ def phase_profile(eng, prompts, max_new, label="phase 5 where a decode step goes
         with eng._decode_lock:
             eng.scheduler.step_batch()
 
-    info = profile_steps(step, eng.device, watch="paged_attention")
+    info = profile_steps(step, eng.device, watch=("paged_attention",))
     for g in gens:
         g.close()
     log(f"{label} (B=8, {info['steps']} steps, then the "
         f"same under the profiler): {profile_line(info)}; paged_attention "
-        f"{info['watch_ms_per_step']} ms per step")
+        f"{info['watch_ms_per_step']['paged_attention']} ms per step")
     return info
 
 
@@ -853,6 +882,12 @@ def tree_cat(trees, dim):
             else torch.cat([t[k] for t in trees], dim=dim) for k, v in first.items()}
 
 
+def tree_clone(tree):
+    """A copy of a cache tree: a decode step advances an SSM layer's state
+    in place, so each run of the same step needs its own."""
+    return {k: tree_clone(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
 def first_step_ties(batched, alone, streams=None):
     """Rows where the batched step picks another token than the stream
     alone must be near-ties of the stream alone (top-2 gap within the
@@ -965,22 +1000,31 @@ def phase_teacher_forced(model, cfg, rng, card, K=200, steps=8):
     return {"max_abs_err": err, "per_step": errs}
 
 
-def phase_mamba_times(model, ssd_args, cache, tok, pos, card):
+def k4_times(timer, ssd_args, Q):
+    """K4 at one shape: its time, its plain version's, and its bound (the
+    inputs read once; y_diag, the states and the decays written once in
+    fp32; the products' operations at the tensor-core peak). No one
+    PyTorch call computes it."""
     from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
     from repro_torch.kernels.ssd.ref import ssd_intra_chunk_ref
 
-    timer = Timer()
-    sh = SSD_SHAPE
-    B, S, H, P, N, Q = (sh[k] for k in "BSHPNQ")
+    B, S, H, P = ssd_args[0].shape
+    N = ssd_args[3].shape[-1]
     nc = S // Q
     nbytes = sum(t.numel() * t.element_size() for t in ssd_args) \
         + 4 * (B * S * H * P + B * nc * H * N * P + B * nc * H)
     flops = B * nc * (2 * Q * Q * N + H * (2 * Q * Q * P + 2 * Q * N * P))
     b_ms, b_by = bound_ms(nbytes, flops)
-    k4 = {"ms": timer.ms(lambda: ssd_intra_chunk_cuda(*ssd_args, Q)),
-          "plain_ms": timer.ms(lambda: ssd_intra_chunk_ref(*ssd_args, Q)),
-          "library_ms": None, "library_backend": None, "bound_ms": b_ms, "bound_by": b_by,
-          "bytes": nbytes, "flops": flops}
+    return {"ms": timer.ms(lambda: ssd_intra_chunk_cuda(*ssd_args, Q)),
+            "plain_ms": timer.ms(lambda: ssd_intra_chunk_ref(*ssd_args, Q)),
+            "library_ms": None, "library_backend": None, "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "flops": flops}
+
+
+def phase_mamba_times(model, ssd_args, cache, tok, pos, card):
+    timer = Timer()
+    k4 = k4_times(timer, ssd_args, SSD_SHAPE["Q"])
+    b_ms, b_by, nbytes, flops = (k4[k] for k in ("bound_ms", "bound_by", "bytes", "flops"))
 
     toks = torch.randint(1, model.cfg.vocab_size, (8, 512), dtype=torch.int32,
                          device=model.device)
@@ -1238,11 +1282,11 @@ def phase_gemma_times(model, gen, card):
                          device=model.device)
     prefill_ms = timer.ms(lambda: model.prefill(toks), samples=5, warmup=1)
     prof = profile_steps(lambda: model.prefill(toks), model.device, steps=2,
-                         watch="flash_prefill")
+                         watch=("flash_prefill",))
     info = {"flash_prefill": out, "prefill_1x4096_ms": prefill_ms,
             "prefill_1x4096_tokens_per_s": 4096 / prefill_ms * 1e3,
             "prefill_1x4096_profile": prof}
-    share = (prof["watch_ms_per_step"] / prof["device_busy_ms_per_step"]
+    share = (prof["watch_ms_per_step"]["flash_prefill"] / prof["device_busy_ms_per_step"]
              if prof["device_busy_ms_per_step"] else None)
     info["flash_prefill_share_of_busy"] = share
     log(f"phase 15 gemma3 times on {card} (ms, median of {SAMPLES}, L2 flushed): "
@@ -1254,7 +1298,8 @@ def phase_gemma_times(model, gen, card):
                     f"{d['library_host_us']:.1f})" for n, d in out.items())
         + f"; prefill 1x4096 {prefill_ms:.2f} ms (median of 5, "
         f"{info['prefill_1x4096_tokens_per_s']:.0f} tokens/s; 2 more, then 2 under the "
-        f"profiler: {profile_line(prof)}; flash_prefill {prof['watch_ms_per_step']:.2f} ms "
+        f"profiler: {profile_line(prof)}; flash_prefill "
+        f"{prof['watch_ms_per_step']['flash_prefill']:.2f} ms "
         f"per prefill, share of busy {share if share is None else round(share, 3)})")
     return info
 
@@ -1812,6 +1857,20 @@ def count_syncs(fn) -> dict:
                         if "synchroniz" in str(w.message)))
 
 
+def layer_counts(cfg):
+    """Attention, SSM and MoE layers of the whole stack."""
+    pattern = cfg.block_pattern()
+    return tuple(cfg.num_blocks * sum(map(f, pattern)) for f in (
+        lambda s: s.kind == "attn", lambda s: s.kind == "ssm", lambda s: s.moe))
+
+
+def peak_gb() -> float:
+    """Peak device memory allocated since the last call, in GB."""
+    gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    return gb
+
+
 def routed(fn, pinned=None):
     """Call ``fn`` with every MoE layer's router logits (fp32, rows =
     tokens) and experts recorded; with ``pinned`` (experts a layer, rows =
@@ -1880,15 +1939,18 @@ def phase_moe_serve(cfg, model, prompts, max_new, card, n):
     twice the router logits' shift (a flip, not a routing fault); every
     stream alone routed to the batched step's experts agrees with it by
     phase 9's rule (tokens equal outside near-ties); and so does every
-    stream whose experts never differ, on its own routing."""
+    stream whose experts never differ, on its own routing. Each prefill
+    launches K3 once an attention layer and K4 once an SSM layer."""
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
     from repro_torch.models.moe import dropless_moe
 
     dev, B = model.device, len(prompts)
+    n_attn, n_ssm, _ = layer_counts(cfg)
     # room for the profiled steps after the main path's
     cache_len = max(len(p) for p in prompts) + max_new + 8
     with dropless_moe():
-        flash_prefill_cuda.launches = 0
+        flash_prefill_cuda.launches = ssd_intra_chunk_cuda.launches = 0
         caches, first, prefill_ms = [], [], []
         for prompt in prompts:
             toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
@@ -1908,7 +1970,7 @@ def phase_moe_serve(cfg, model, prompts, max_new, card, n):
         if not torch.isfinite(logits).all():
             fail(f"{cfg.name} decode step 0 produced non-finite logits")
         alone, traces_a = zip(*(routed(lambda i=i: model.decode_step(
-            tok[i:i + 1], pos[i:i + 1], caches[i])[0]) for i in range(B)))
+            tok[i:i + 1], pos[i:i + 1], tree_clone(caches[i]))[0]) for i in range(B)))
         alone = torch.cat(alone)
         flips = router_flips(trace_b, traces_a, cfg.top_k)
         if wide := [(i, f) for i, f in enumerate(flips)
@@ -1918,7 +1980,7 @@ def phase_moe_serve(cfg, model, prompts, max_new, card, n):
                  f"(stream, layer, gap, shift) "
                  f"{[(i, f['layer'], f['router_gap_at_k'], f['router_shift']) for i, f in wide]}")
         pinned = torch.cat([routed(lambda i=i: model.decode_step(
-            tok[i:i + 1], pos[i:i + 1], caches[i])[0],
+            tok[i:i + 1], pos[i:i + 1], tree_clone(caches[i]))[0],
             pinned=[e[i:i + 1] for _, e in trace_b])[0] for i in range(B)])
         del caches, trace_b, traces_a
         batch_err = (logits - pinned).abs().max().item()
@@ -1937,10 +1999,10 @@ def phase_moe_serve(cfg, model, prompts, max_new, card, n):
             streams.append(logits.argmax(-1).to(torch.int32))
         sync(dev)
         t_decode = time.perf_counter() - t0
-        launches = flash_prefill_cuda.launches
-        if launches != cfg.num_layers * B:
-            fail(f"flash_prefill launched {launches} times, expected "
-                 f"{cfg.num_layers} x {B} prefill calls")
+        launches, ssd_launches = flash_prefill_cuda.launches, ssd_intra_chunk_cuda.launches
+        if (launches, ssd_launches) != (n_attn * B, n_ssm * B):
+            fail(f"flash_prefill and ssd_intra_chunk launched {launches} and {ssd_launches} "
+                 f"times, expected {n_attn} and {n_ssm} x {B} prefill calls")
         tokens = torch.stack(streams, dim=1).tolist()
         if [t[0] for t in tokens] != first:
             fail("a stream does not start from the argmax of its own prefill")
@@ -1957,14 +2019,14 @@ def phase_moe_serve(cfg, model, prompts, max_new, card, n):
         prof = profile_steps(step, dev, steps=3)
         toks = torch.randint(1, cfg.vocab_size, (8, 512), dtype=torch.int32, device=dev)
         prefill_prof = profile_steps(lambda: model.prefill(toks), dev, steps=2,
-                                     watch="flash_prefill")
+                                     watch=("flash_prefill", "ssd_intra_chunk"))
     del cache
     torch.cuda.empty_cache()
     step_ms = 1e3 * t_decode / (max_new - 1)
     flip_text = [f and (f["layer"], round(f["router_gap_at_k"], 5), round(f["router_shift"], 5))
                  for f in flips]
     info = {"prompt_lens": [len(p) for p in prompts], "cache_len": cache_len,
-            "prefill_ms": prefill_ms, "launches": launches,
+            "prefill_ms": prefill_ms, "launches": launches, "ssd_launches": ssd_launches,
             "batched_vs_alone_max_abs_err": batch_err,
             "batched_vs_alone_near_ties": batch_ties,
             "routed_alone": dict(free, router_flips=flips, unflipped_streams=same,
@@ -1974,8 +2036,9 @@ def phase_moe_serve(cfg, model, prompts, max_new, card, n):
             "decode_profile": prof,
             "prefill_8x512_profile": prefill_prof}
     log(f"phase {n} {cfg.name} main path (dropless) on {card}: {B} prefills alone (lengths "
-        f"{info['prompt_lens']}), flash_prefill launches {launches} = {cfg.num_layers} x {B}, "
-        f"prefill ms {[round(t, 1) for t in prefill_ms]}; caches joined, {max_new} greedy "
+        f"{info['prompt_lens']}), flash_prefill launches {launches} = {n_attn} x {B}"
+        + (f", ssd_intra_chunk launches {ssd_launches} = {n_ssm} x {B}" if n_ssm else "")
+        + f", prefill ms {[round(t, 1) for t in prefill_ms]}; caches joined, {max_new} greedy "
         f"steps at B={B}: logits finite, first step vs each stream alone with the batched "
         f"step's experts: tokens equal but at near-ties {batch_ties}, max |Δlogit| "
         f"{batch_err:.3e}; each stream alone on its own routing: experts differ from the "
@@ -1989,8 +2052,10 @@ def phase_moe_serve(cfg, model, prompts, max_new, card, n):
         f"{n_syncs} device-to-host syncs a step, by line {syncs}; {prof['steps']} steps, then "
         "the same under the "
         f"profiler): {profile_line(prof)}; prefill 8x512 (2 steps, then 2 under the profiler): "
-        f"{profile_line(prefill_prof)}; flash_prefill {prefill_prof['watch_ms_per_step']:.2f} "
-        "ms a prefill")
+        f"{profile_line(prefill_prof)}; flash_prefill "
+        f"{prefill_prof['watch_ms_per_step']['flash_prefill']:.2f} ms a prefill"
+        + (f", ssd_intra_chunk {prefill_prof['watch_ms_per_step']['ssd_intra_chunk']:.2f} ms"
+           if n_ssm else ""))
     return info
 
 
@@ -2042,8 +2107,8 @@ def phase_moe_capacity(cfg, model, rng, card, n, B=8, S=512):
         logits, _ = model.prefill(toks)
     finally:
         tr.moe_apply = serve_moe
-    if len(layers) != cfg.num_layers:
-        fail(f"the capacity probe saw {len(layers)} MoE layers, expected {cfg.num_layers}")
+    if len(layers) != layer_counts(cfg)[2]:
+        fail(f"the capacity probe saw {len(layers)} MoE layers, expected {layer_counts(cfg)[2]}")
     if not torch.isfinite(logits).all():
         fail(f"{cfg.name} capacity prefill produced non-finite logits")
     if any(l["dropped_at_E_over_k"] for l in layers):
@@ -2071,22 +2136,25 @@ def phase_moe_capacity(cfg, model, rng, card, n, B=8, S=512):
 
 def phase_moe_teacher_forced(cfg, layers, rng, card, n, K=200, steps=8):
     """An fp32 model of the first ``layers`` layers (drawn from the served
-    model's seed, so its weights are the served ones in fp32) under
-    ``dropless_moe()``: each decode step against a prefill of the prefix
-    plus that token through the flash-prefill kernel in fp32."""
+    model's seed: where the super-block is one layer its weights are the
+    served ones in fp32) under ``dropless_moe()``: each decode step
+    against a prefill of the prefix plus that token through the
+    flash-prefill kernel (and the SSD kernel) in fp32."""
     from dataclasses import replace
 
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
     from repro_torch.models import build_model
     from repro_torch.models.moe import dropless_moe
 
     cfg_s = replace(cfg, num_layers=layers)
+    n_attn, n_ssm, _ = layer_counts(cfg_s)
     m32 = build_model(cfg_s).init(torch.Generator("cuda").manual_seed(0)).float()
     dev = m32.device
     gb = sum(p.numel() * p.element_size() for p in m32.parameters()) / 1e9
     toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(2, K + steps)).astype(
         np.int32)).to(dev)
-    n0 = flash_prefill_cuda.launches
+    n0, s0 = flash_prefill_cuda.launches, ssd_intra_chunk_cuda.launches
     errs = []
     with dropless_moe():
         logits, cache = m32.prefill(toks[:, :K], cache_len=K + steps)
@@ -2097,15 +2165,17 @@ def phase_moe_teacher_forced(cfg, layers, rng, card, n, K=200, steps=8):
             errs.append((logits - ref).abs().max().item())
             if not torch.equal(logits.argmax(-1), ref.argmax(-1)):
                 fail(f"fp32 decode step {t} picks another token than the prefill of its prefix")
-    if flash_prefill_cuda.launches - n0 != layers * (steps + 1):
-        fail("the fp32 prefills did not all run the flash-prefill kernel")
+    if (flash_prefill_cuda.launches - n0, ssd_intra_chunk_cuda.launches - s0) != (
+            n_attn * (steps + 1), n_ssm * (steps + 1)):
+        fail("the fp32 prefills did not all run the flash-prefill and SSD kernels")
     err = max(errs)
     if err > TOL_TF:
         fail(f"fp32 decode vs prefill max |err| {err:.3e} > {TOL_TF:g}")
     del m32, cache
     torch.cuda.empty_cache()
     log(f"phase {n} {cfg.name} fp32 teacher forcing on {card} (dropless): first {layers} of "
-        f"{cfg.num_layers} layers ({gb:.1f} GB in fp32, the served weights), B=2, prefill {K} "
+        f"{cfg.num_layers} layers ({gb:.1f} GB in fp32, "
+        f"{'the served weights' if len(cfg.block_pattern()) == 1 else 'seed 0'}), B=2, prefill {K} "
         f"tokens, {steps} decode steps each against a kernel prefill of its prefix: max |err| "
         f"{err:.3e} (atol {TOL_TF:g}), argmax equal")
     return {"layers": layers, "gb_fp32": gb, "max_abs_err": err, "per_step": errs}
@@ -2135,12 +2205,190 @@ def phase_moe(cfg, prompts, rng, card, n, tf_layers):
 
 
 # ---------------------------------------------------------------------------
+# phases 24-28: the hybrid (jamba-v0.1-52b at half depth)
+# ---------------------------------------------------------------------------
+def phase_jamba_kernels(gen, cfg, S, card):
+    """K3 at jamba's attention shape (B=1, its longest prompt, 32/8 heads
+    at head_dim 128) and K4 at its batched prefill shape (B 8, S 512, 128
+    heads, state 16), each against its plain version in bf16 and f32 at
+    phase 12's and phase 8's tolerances, with the SSD init's chunk decays
+    above 88; then each timed beside its bound, its plain version and (K3)
+    SDPA."""
+    sh = JAMBA_SSD_SHAPE
+    B, S4, H, P, N, Q = (sh[k] for k in "BSHPNQ")
+    case = (1, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 0, 0.0)
+    errs = dict(check_k3(gen, case, dtype) for dtype in (torch.bfloat16, torch.float32))
+    args = ssd_inputs(gen, B, S4, H, P, N, torch.bfloat16)
+    chunk_decay = -(args[1] * args[2]).reshape(B, S4 // Q, Q, H).sum(2)
+    hot_heads = int((chunk_decay > 88).flatten(0, 1).any(0).sum())
+    if hot_heads == 0:
+        fail("no head's chunk decay passes 88 at jamba's SSD shape")
+    for dtype, a in (("bf16", args), ("f32", ssd_inputs(gen, B, S4, H, P, N, torch.float32))):
+        errs[f"ssd B{B} S{S4} H{H} P{P} N{N} Q{Q} {dtype}"] = check_k4(a, Q)[0]
+    timer = Timer()
+    k3 = k3_times(timer, gen, *case[:-1])
+    k4 = k4_times(timer, args, Q)
+    torch.cuda.empty_cache()
+    log(f"phase 24 jamba kernels vs plain on {card}: flash_prefill at B1 S{S} "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} D{cfg.head_dim} (bf16 at atol "
+        f"{TOL_K1_BF16['atol']:g}/rtol {TOL_K1_BF16['rtol']:g}, f32 at "
+        f"{TOL_F32['atol']:g}/{TOL_F32['rtol']:g}) and ssd_intra_chunk ({hot_heads}/{H} heads "
+        f"with a chunk decay above 88, max {chunk_decay.max().item():.1f}; atol "
+        f"{TOL_K4:g}·max|ref|, rtol {TOL_K4:g}): max |err| "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; times (ms, median of {SAMPLES}, L2 "
+        f"flushed): flash_prefill {k3['ms']:.5f} ({k3['TFLOP_per_s']:.1f} TFLOP/s), plain "
+        f"{k3['plain_ms']:.5f}, {k3['library_backend']} {k3['library_ms']:.5f} (by backend "
+        f"{json.dumps(k3['library_ms_by_backend'])}), bound {k3['bound_ms']:.5f} "
+        f"({k3['bound_by']}), host µs a call {k3['host_us']:.1f}; ssd_intra_chunk "
+        f"{k4['ms']:.5f}, plain {k4['plain_ms']:.5f}, bound {k4['bound_ms']:.5f} "
+        f"({k4['bound_by']}; {k4['bytes']} bytes, {k4['flops']} flops), library none")
+    return {"max_abs_err": errs, "hot_heads": hot_heads,
+            "max_chunk_decay": chunk_decay.max().item(),
+            "times": {"flash_prefill": k3, "ssd_intra_chunk": k4}}
+
+
+def ssd_spans(fn):
+    """Call ``fn`` with CUDA events around every ``ssd_chunked`` call of the
+    SSM layers and every K4 launch inside them. Returns (fn's result, ms
+    between the events summed for ``ssd_chunked``, for K4)."""
+    import repro_torch.kernels.ssd.ops as ops
+    import repro_torch.models.ssm as ssm
+
+    spans = {"scan": [], "k4": []}
+    scan, k4 = ssm.ssd_chunked, ops.ssd_intra_chunk_cuda
+
+    def timed(key, f):
+        def call(*a, **kw):
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = f(*a, **kw)
+            stop.record()
+            spans[key].append((start, stop))
+            return out
+        return call
+
+    ssm.ssd_chunked, ops.ssd_intra_chunk_cuda = timed("scan", scan), timed("k4", k4)
+    try:
+        out = fn()
+    finally:
+        ssm.ssd_chunked, ops.ssd_intra_chunk_cuda = scan, k4
+    torch.cuda.synchronize()
+    return out, *(sum(a.elapsed_time(b) for a, b in spans[k]) for k in ("scan", "k4"))
+
+
+def phase_jamba_long(cfg, model, rng, card, n, S=JAMBA_LONG, max_new=MAX_NEW):
+    """One prompt of ``S`` tokens at B=1 under ``dropless_moe()``: its
+    time to first token (host clock, ending in a sync), the same prefill
+    under the profiler (device busy, K3's and K4's device time) and with
+    CUDA events around each SSM layer's ``ssd_chunked`` and each K4 launch
+    (the chunked scan outside K4: the inter-chunk recurrence and the
+    off-diagonal term); then ``max_new`` greedy decode steps."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+    from repro_torch.models.moe import dropless_moe
+
+    dev = model.device
+    n_attn, n_ssm, _ = layer_counts(cfg)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(1, S)).astype(
+        np.int32)).to(dev)
+    cache_len = S + max_new
+    with dropless_moe():
+        f0, s0 = flash_prefill_cuda.launches, ssd_intra_chunk_cuda.launches
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(toks, cache_len=cache_len)
+        sync(dev)
+        ttft_ms = 1e3 * (time.perf_counter() - t0)
+        if (flash_prefill_cuda.launches - f0, ssd_intra_chunk_cuda.launches - s0) != (
+                n_attn, n_ssm):
+            fail(f"the {S}-token prefill did not launch K3 {n_attn} and K4 {n_ssm} times")
+        if not torch.isfinite(logits).all():
+            fail(f"{cfg.name}: the {S}-token prefill produced non-finite logits")
+        tok = logits.argmax(-1).to(torch.int32)
+        sync(dev)
+        t0 = time.perf_counter()
+        for k in range(max_new):
+            logits, cache = model.decode_step(tok, torch.tensor([S + k], dtype=torch.int32,
+                                                                device=dev), cache)
+            if not torch.isfinite(logits).all():
+                fail(f"{cfg.name}: decode step {k} after {S} tokens produced non-finite logits")
+            tok = logits.argmax(-1).to(torch.int32)
+        sync(dev)
+        step_ms = 1e3 * (time.perf_counter() - t0) / max_new
+        del cache
+        prof = profile_steps(lambda: model.prefill(toks, cache_len=cache_len), dev, steps=1,
+                             watch=("flash_prefill", "ssd_intra_chunk"))
+        sync(dev)
+        t0 = time.perf_counter()
+        _, scan_ms, k4_ms = ssd_spans(lambda: model.prefill(toks, cache_len=cache_len))
+        spans_wall = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    busy = prof["device_busy_ms_per_step"]
+    k3_dev, k4_dev = (prof["watch_ms_per_step"][w] for w in ("flash_prefill", "ssd_intra_chunk"))
+    info = {"prompt_tokens": S, "ttft_ms": ttft_ms, "decode_step_ms_b1": step_ms,
+            "profile": prof, "flash_prefill_share_of_busy": k3_dev / busy if busy else None,
+            "ssd_intra_chunk_share_of_busy": k4_dev / busy if busy else None,
+            "ssd_chunked_span_ms": scan_ms, "ssd_intra_chunk_span_ms": k4_ms,
+            "scan_outside_k4_span_ms": scan_ms - k4_ms, "spans_run_wall_ms": spans_wall,
+            "scan_outside_k4_share_of_wall": (scan_ms - k4_ms) / spans_wall}
+    log(f"phase {n} {cfg.name} long prompt on {card} (dropless): a {S}-token prefill at B=1, "
+        f"TTFT {ttft_ms:.1f} ms (K3 {n_attn}, K4 {n_ssm} launches), logits finite; "
+        f"{max_new} greedy steps {step_ms:.2f} ms a step; the prefill again under the "
+        f"profiler: {profile_line(prof)}; flash_prefill {k3_dev:.2f} ms (share of busy "
+        f"{info['flash_prefill_share_of_busy'] or 0:.3f}), ssd_intra_chunk {k4_dev:.2f} ms "
+        f"({info['ssd_intra_chunk_share_of_busy'] or 0:.3f}); once more with CUDA events: "
+        f"ssd_chunked {scan_ms:.2f} ms in {n_ssm} layers, K4 inside {k4_ms:.2f} ms, the "
+        f"inter-chunk scan and off-diagonal term (ssd_chunked outside K4) {scan_ms - k4_ms:.2f}"
+        f" ms, {100 * info['scan_outside_k4_share_of_wall']:.1f}% of that prefill's "
+        f"{spans_wall:.1f} ms wall")
+    return info
+
+
+def phase_jamba(cfg, prompts, rng, card):
+    """jamba-v0.1-52b at published width and ``cfg.num_layers`` layers,
+    random weights from seed 0: the main path, the capacity path and the
+    long prompt on bf16 weights, then (those freed) fp32 teacher forcing
+    over one super-block. Peak device memory after each."""
+    from repro_torch.models import build_model
+
+    peak_gb()
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    peaks = {"init": peak_gb()}
+    n_attn, n_ssm, n_moe = layer_counts(cfg)
+    log(f"model: {cfg.name} {cfg.num_layers} of 32 layers ({n_attn} attention, {n_ssm} SSM, "
+        f"{n_moe} MoE of {cfg.num_experts} experts top {cfg.top_k}), {n_params / 1e9:.2f} B "
+        f"params ({2 * n_params / 1e9:.1f} GB in bf16; the reference's analytic count "
+        f"{cfg.param_count() / 1e9:.2f} B leaves out the SSM layers' dense FFNs), initialised "
+        f"in {time.perf_counter() - t0:.1f} s, peak {peaks['init']:.1f} GB")
+    serve = phase_moe_serve(cfg, model, prompts, MAX_NEW, card, 25)
+    peaks["serve"] = peak_gb()
+    capacity = phase_moe_capacity(cfg, model, rng, card, 26)
+    peaks["capacity"] = peak_gb()
+    long = phase_jamba_long(cfg, model, rng, card, 27)
+    peaks["long_prompt"] = peak_gb()
+    del model
+    torch.cuda.empty_cache()
+    tf = phase_moe_teacher_forced(cfg, JAMBA_TF_LAYERS, rng, card, 28)
+    peaks["teacher_forced"] = peak_gb()
+    log(f"{cfg.name} peak device memory (GB) by phase on {card}: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in peaks.items()))
+    return {"params": n_params, "serve": serve, "capacity": capacity, "long_prompt": long,
+            "teacher_forced": tf, "peak_gb": peaks,
+            "longest_prompt": max(len(p) for p in prompts)}
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from dataclasses import replace
+
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models import build_model
@@ -2259,6 +2507,15 @@ def main() -> int:
     moes = {name: phase_moe(c, moe_prompts[name], rng, card, n, MOE_ARCHS[name])
             for n, (name, c) in enumerate(moe_cfgs.items(), start=22)}
 
+    # the hybrid: K3 and K4 at jamba's shapes, then the model at half depth
+    jcfg = replace(get_config("jamba_v01_52b"), num_layers=JAMBA_LAYERS)
+    j_prompts = make_prompts(rng, 8, jcfg.vocab_size)
+    j_kernels = phase_jamba_kernels(gen, jcfg, max(len(p) for p in j_prompts), card)
+    for name, prefix in (("flash_prefill", "B"), ("ssd_intra_chunk", "ssd")):
+        errs[name] = max(errs[name], *(v for k, v in j_kernels["max_abs_err"].items()
+                                       if k.startswith(prefix)))
+    jamba = phase_jamba(jcfg, j_prompts, rng, card)
+
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention/kernel.py:189"),
@@ -2284,6 +2541,8 @@ def main() -> int:
                   "flash_prefill": f["serve"]["flash_prefill_launches"],
                   **f["transfer"]["launches"]} for name, f in fams.items()},
         **{name: {"flash_prefill": m["serve"]["launches"]} for name, m in moes.items()},
+        jcfg.name: {"flash_prefill": jamba["serve"]["launches"],
+                    "ssd_intra_chunk": jamba["serve"]["ssd_launches"]},
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -2304,7 +2563,8 @@ def main() -> int:
               "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,
               "gemma_teacher_forced": g_tf, "gemma_times": g_times, "rpc": rpc,
               "new_layouts": new, "families": fams, "family_times": fam_times,
-              "moe_kernels": moe_k3, "moe": moes, "kernels": kernels}
+              "moe_kernels": moe_k3, "moe": moes, "jamba_kernels": j_kernels, "jamba": jamba,
+              "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -1,6 +1,6 @@
-"""GQA self-attention with RoPE or M-RoPE, optional q/k/v biases,
-qk-norm, sliding windows and a logit softcap, over dense or ring KV caches
-(bf16, fp32 or int8).
+"""GQA self-attention with RoPE, M-RoPE or no positions (jamba), optional
+q/k/v biases, qk-norm, sliding windows and a logit softcap, over dense or
+ring KV caches (bf16, fp32 or int8).
 
 Two entry modes:
   * full-sequence prefill. Without caller-given positions the positions
@@ -93,7 +93,10 @@ def _project_out(out, p):
 
 
 def _rope_qk(q, k, positions, cfg: ModelConfig, spec: LayerSpec):
-    """positions: (B, S) for ``rope``; (3, B, S) for ``mrope``."""
+    """positions: (B, S) for ``rope``; (3, B, S) for ``mrope``; q and k
+    pass unchanged for ``none`` (jamba's attention has no positions)."""
+    if cfg.rope_kind == "none":
+        return q, k
     if cfg.rope_kind == "mrope":
         return (apply_mrope(q, positions, spec.rope_theta, cfg.mrope_sections),
                 apply_mrope(k, positions, spec.rope_theta, cfg.mrope_sections))
@@ -236,8 +239,9 @@ def attention_decode(x, p, cfg: ModelConfig, spec: LayerSpec, cache: Params,
     in a windowed layer's ring; the returned cache is the same tensors;
     an int8 cache stores them quantized) and attends over the valid
     slots, within the window. M-RoPE turns q and k by three equal streams
-    from ``pos``. ``pos`` must lie inside a global layer's cache;
-    ``apply_stack_decode`` checks that before any layer writes.
+    from ``pos``; ``rope_kind="none"`` turns nothing. ``pos`` must lie
+    inside a global layer's cache; ``apply_stack_decode`` checks that
+    before any layer writes.
     """
     B = x.shape[0]
     pos_vec = pos.expand(B) if pos.dim() == 0 else pos

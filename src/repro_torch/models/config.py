@@ -2,10 +2,11 @@
 
 The field set is the reference package's, so a config built here names
 the same architecture; the port serves the dense family (``rmsnorm``,
-``rope``, ``swiglu``), its vlm and moe variants and the Mamba-2 SSM
-family (``d_inner``, ``ssm_heads``). ``block_pattern()`` factors the layer stack into a
-repeating *super-block*; the stacked parameters carry one leading layer
-axis per pattern position.
+``rope``, ``swiglu``), its vlm and moe variants, the Mamba-2 SSM family
+(``d_inner``, ``ssm_heads``) and the hybrid (jamba's attention:SSM
+super-block, ``attn_layer_period``). ``block_pattern()`` factors the
+layer stack into a repeating *super-block*; the stacked parameters carry
+one leading layer axis per pattern position.
 """
 
 from __future__ import annotations
@@ -133,8 +134,10 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + per-layer), the
-        reference's formula for the ported families (dense, vlm, moe,
-        ssm)."""
+        reference's formula for the ported families (dense, vlm, moe, ssm,
+        hybrid). Like the reference it counts a dense FFN only on
+        attention layers and in the ssm family: a hybrid's non-MoE SSM
+        layers hold one (``init_layer``) that the count leaves out."""
         d, v = self.d_model, self.vocab_size
         total = d * v
         if not self.tie_embeddings:
@@ -153,7 +156,7 @@ class ModelConfig:
             if spec.moe:
                 total += d * self.num_experts                     # router
                 total += self.num_experts * 3 * d * self.moe_d_ff
-            elif self.d_ff:
+            elif self.d_ff and (spec.kind == "attn" or self.family == "ssm"):
                 total += (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
             total += 2 * d  # norms (approx)
         return total

@@ -1,5 +1,5 @@
-"""Top-level Model for the dense, vlm (Qwen2-VL's backbone), moe and SSM
-families: init, prefill, decode.
+"""Top-level Model for the dense, vlm (Qwen2-VL's backbone), moe, SSM and
+hybrid (jamba) families: init, prefill, decode.
 
 ``Model`` is an ``nn.ModuleDict`` whose parameter tree has the reference
 tree's key paths (``embed.tok``, ``stack.pos0.attn.wq``, ``norm_f.scale``)
@@ -39,11 +39,13 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise for any architecture feature outside the ported families:
     dense (RoPE, SwiGLU; optionally gemma's RMSNorm, OLMo's LayerNorm,
     q/k/v biases, qk-norm, sliding windows and a logit softcap), vlm (the
-    same with M-RoPE), moe (the dense family's attention with an MoE FFN)
-    and Mamba-2 SSM (no positions). Encoders and the hybrid stay
-    refused."""
-    rope = {"dense": "rope", "vlm": "mrope", "moe": "rope", "ssm": "none"}
-    moe = cfg.family == "moe"
+    same with M-RoPE), moe (the dense family's attention with an MoE FFN),
+    Mamba-2 SSM (no positions) and the hybrid (attention without
+    positions among SSM layers, with or without MoE FFNs, as jamba).
+    Encoders stay refused."""
+    rope = {"dense": "rope", "vlm": "mrope", "moe": "rope", "ssm": "none",
+            "hybrid": "none"}
+    experts = {"moe": (True,), "hybrid": (False, True)}
     unported = [
         name for name, bad in (
             (f"family {cfg.family!r}", cfg.family not in rope),
@@ -51,7 +53,8 @@ def check_ported(cfg: ModelConfig) -> None:
             ("rope_kind", cfg.rope_kind != rope.get(cfg.family)),
             ("mlp_kind", cfg.mlp_kind != "swiglu"),
             ("encoder_layers", bool(cfg.encoder_layers)),
-            ("num_experts", bool(cfg.num_experts) != moe),
+            ("num_experts",
+             bool(cfg.num_experts) not in experts.get(cfg.family, (False,))),
         ) if bad]
     if unported:
         raise NotImplementedError(

@@ -1,15 +1,16 @@
 """Decoder stack: dense self-attention layers (global or sliding-window,
-as gemma3's 5:1 local:global super-block) and Mamba-2 SSM layers, with a
-dense SwiGLU FFN or a mixture-of-experts FFN (``moe.py``).
+as gemma3's 5:1 local:global super-block) and Mamba-2 SSM layers, mixed
+in jamba's 1:7 attention:SSM super-block, each with a dense SwiGLU FFN or
+a mixture-of-experts FFN (``moe.py``).
 
 Parameters for each super-block position are stacked over blocks with a
 leading layer axis (``stack.pos0.attn.wq`` is ``(L, d, H, Dh)``), as in
 the reference; the reference's ``lax.scan`` over that axis becomes a
 Python loop over layer slices (views, no copies). A layer has an MLP
-only when ``d_ff > 0`` (an SSM layer of mamba2 has none); an MoE layer
-has an MoE FFN in its place. A norm's subtree is empty for OLMo's
-non-parametric LayerNorm. A windowed position's cache leaves are rings
-of ``min(window, cache_len)`` slots.
+only when ``d_ff > 0`` (an SSM layer of mamba2 has none; jamba's have
+one); an MoE layer, attention or SSM, has an MoE FFN in its place. A
+norm's subtree is empty for OLMo's non-parametric LayerNorm. A windowed
+position's cache leaves are rings of ``min(window, cache_len)`` slots.
 """
 
 from __future__ import annotations
@@ -38,12 +39,11 @@ def tree_index(tree, i: int):
 
 
 def _check_ported(spec: LayerSpec) -> None:
-    if spec.kind not in ("attn", "ssm") or spec.cross_attn or (
-            spec.moe and spec.kind != "attn"):
+    if spec.kind not in ("attn", "ssm") or spec.cross_attn:
         raise NotImplementedError(
             f"layer {spec} is not ported: the port serves self-attention "
-            "(global or sliding-window) layers with a dense or MoE FFN and "
-            "SSM layers without MoE, and no cross-attention")
+            "(global or sliding-window) and SSM layers, each with a dense "
+            "or MoE FFN or none, and no cross-attention")
 
 
 # ---------------------------------------------------------------------------

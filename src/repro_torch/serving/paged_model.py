@@ -23,10 +23,10 @@ from ..models.transformer import tree_index
 
 def check_paged_compatible(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a ported, uniform self-attention stack
-    (``NotImplementedError`` for encoders and the hybrid, which the port
-    does not run at all; ``ValueError`` for MoE, SSM and windowed stacks,
-    which decode over dense caches instead, as the reference's
-    ``PagedLM`` refuses them)."""
+    (``NotImplementedError`` for encoders, which the port does not run at
+    all; ``ValueError`` for MoE, SSM, hybrid and windowed stacks, which
+    decode over dense caches instead, as the reference's ``PagedLM``
+    refuses them)."""
     check_ported(cfg)
     pattern = cfg.block_pattern()
     if len(pattern) != 1 or pattern[0].kind != "attn" or pattern[0].moe:

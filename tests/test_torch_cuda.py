@@ -1,6 +1,6 @@
 """The port's CUDA kernels, its paged decode, its Mamba-2 prefill, and its
-gemma3 and MoE prefill and decode on the card, held against the port's
-plain PyTorch versions on the same inputs. Needs a CUDA card
+gemma3, MoE and jamba prefill and decode on the card, held against the
+port's plain PyTorch versions on the same inputs. Needs a CUDA card
 and nvcc; skips without one. Imports nothing of jax, so it also runs on a
 machine with the card and no jax:
 
@@ -27,6 +27,7 @@ from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import PagedKVPool, PoolConfig, ServeEngine, paged_decode_step  # noqa: E402
 from repro_torch.serving import transfer_pages_cross_pod  # noqa: E402
+from torch_forcing import TorchSide, check_forced, expert_draws, forced  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -628,3 +629,99 @@ def test_moe_prefill_and_decode_on_card_match_cpu(dev, arch, dropless):
             lc, cc = model.decode_step(toks[:, t], pos, cc)
             ld, cd = model_d.decode_step(toks[:, t].to(dev), pos.to(dev), cd)
             torch.testing.assert_close(ld.cpu(), lc, **TOL[torch.bfloat16])
+
+
+# -- the hybrid (jamba-v0.1-52b) -----------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssd_kernel_matches_plain_at_jamba_shape(dev, dtype):
+    """jamba's SSD at B 8, S 512 (4 chunks of 128), H 128, P 64, N 16 (the
+    bf16 kernel's N tiles mostly zero fill), with its init's chunk decays,
+    which pass 88."""
+    args = [a.to(dev) for a in _ssd_inputs(8, 512, 128, 64, 16, dtype, seed=16)]
+    cum_last = (args[1] * args[2]).reshape(8, 4, 128, 128).sum(2)
+    assert (-cum_last > 88).any()
+    n0 = ssd_intra_chunk_cuda.launches
+    got = ssd_intra_chunk_cuda(*args, 128)
+    torch.cuda.synchronize()
+    assert ssd_intra_chunk_cuda.launches == n0 + 1
+    for g, w in zip(got, ssd_intra_chunk_ref(*args, 128)):
+        _close_scaled(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_prefill_kernel_at_jamba_prefill_shape(dev, dtype):
+    """jamba's attention layer (32/8 heads at head_dim 128, no positions)
+    over a 509-token prompt, at K1's kernel tolerance."""
+    q, k, v = [t.to(dev) for t in _k3_inputs(1, 509, 32, 8, 128, dtype, seed=8)]
+    n0 = flash_prefill_cuda.launches
+    got = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_prefill_cuda.launches == n0 + 1
+    torch.testing.assert_close(got.float(), flash_prefill_ref(q, k, v).float(), **K1_TOL[dtype])
+
+
+@pytest.mark.parametrize("layers", [8, 16])
+@pytest.mark.parametrize("dropless", [False, True], ids=["capacity", "dropless"])
+def test_jamba_prefill_and_decode_on_card_match_cpu(dev, layers, dropless):
+    """jamba's smoke config at head_dim 64 (the kernel's smallest), 8 and
+    16 layers: a 20-token prefill through K3 (one launch an attention
+    layer) and K4 (one an SSM layer), then 6 decode steps, with capacity
+    routing or under ``dropless_moe()``, against the same model on the
+    CPU. In fp32 at the decode-chain tolerance (tests/test_arch_smoke.py:
+    113); bf16 is held layer by layer by the next test."""
+    from repro_torch.models.moe import dropless_moe
+
+    cfg = replace(get_smoke_config("jamba_v01_52b"), head_dim=64, num_layers=layers)
+    pattern = cfg.block_pattern()
+    n_attn = cfg.num_blocks * sum(s.kind == "attn" for s in pattern)
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu").float()
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        1, cfg.vocab_size, size=(2, 26)).astype(np.int32))
+    model_d = copy.deepcopy(model).to(dev)
+    chain = dict(atol=1e-3, rtol=0)
+    with dropless_moe(dropless):
+        lc, cc = model.prefill(toks[:, :20], cache_len=26)
+        f0, s0 = flash_prefill_cuda.launches, ssd_intra_chunk_cuda.launches
+        ld, cd = model_d.prefill(toks[:, :20].to(dev), cache_len=26)
+        assert flash_prefill_cuda.launches - f0 == n_attn
+        assert ssd_intra_chunk_cuda.launches - s0 == cfg.num_layers - n_attn
+        torch.testing.assert_close(ld.cpu(), lc, **chain)
+        for t in range(20, 26):
+            pos = torch.full((2,), t, dtype=torch.int32)
+            lc, cc = model.decode_step(toks[:, t], pos, cc)
+            ld, cd = model_d.decode_step(toks[:, t].to(dev), pos.to(dev), cd)
+            torch.testing.assert_close(ld.cpu(), lc, **chain)
+    torch.testing.assert_close(cd["pos0"]["ssm"]["ssd"].cpu(), cc["pos0"]["ssm"]["ssd"], **chain)
+    assert torch.equal(cd["pos4"]["self"]["pos"].cpu(), cc["pos4"]["self"]["pos"])
+
+
+@pytest.mark.parametrize("layers", [8, 16])
+@pytest.mark.parametrize("dropless", [False, True], ids=["capacity", "dropless"])
+def test_jamba_bf16_layers_on_card_match_cpu(dev, layers, dropless):
+    """jamba's smoke config at head_dim 64 in bf16, the experts redrawn at
+    std 1/√fan-in (``torch_forcing.expert_draws``): a 20-token prefill and
+    6 decode steps, each layer on the card taking the CPU's input to that
+    layer (``torch_forcing.forced``). Every layer's output, every leaf of
+    its cache and the logits, at the prefill and after every step, at the
+    bf16 tolerance; at the MoE layers a token the two routers keep on
+    different experts is exempt, and only on a near-tie. Two whole bf16
+    chains part past that tolerance (tests/test_torch_hybrid.py). The
+    prefill launches K3 once an attention layer and K4 once an SSM layer,
+    and once more an MoE layer, where the router's input is recomputed."""
+    cfg = replace(get_smoke_config("jamba_v01_52b"), head_dim=64, num_layers=layers)
+    pattern = cfg.block_pattern()
+    n_attn = cfg.num_blocks * sum(s.kind == "attn" for s in pattern)
+    n_moe = cfg.num_blocks * sum(s.moe for s in pattern)
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():
+        for pos, draws in expert_draws(cfg).items():
+            for name, w in draws.items():
+                model["stack"][pos]["moe"][name].copy_(torch.from_numpy(w))
+    assert model["stack"]["pos1"]["moe"]["w_gate"].dtype == torch.bfloat16
+    model_d = copy.deepcopy(model).to(dev)
+    toks = np.random.default_rng(6).integers(1, cfg.vocab_size, size=(2, 26)).astype(np.int32)
+    f0, s0 = flash_prefill_cuda.launches, ssd_intra_chunk_cuda.launches
+    rows, ties = forced(TorchSide(model), TorchSide(model_d), toks, 20, dropless)
+    assert flash_prefill_cuda.launches - f0 == n_attn
+    assert ssd_intra_chunk_cuda.launches - s0 == cfg.num_layers - n_attn + n_moe
+    check_forced(rows, ties, TOL[torch.bfloat16])

@@ -285,16 +285,16 @@ def test_caller_positions_only_for_mrope():
 @pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b",
                                   "jamba_v01_52b", "whisper_base"])
 def test_moe_hybrid_and_encoder_configs_stay_refused(arch):
-    """The hybrid and the encoder stay refused everywhere. The MoE
+    """The encoder stays refused everywhere. The MoE and hybrid
     configurations are ported (``check_ported`` admits them and the model
-    builds), but the paged engine refuses them, as the reference's
-    ``PagedLM`` does: MoE decodes over dense caches."""
+    builds), but the paged engine refuses them with ``ValueError``, as
+    the reference's ``PagedLM`` does: they decode over dense caches."""
     cfg = ModelConfig(**jax_config(arch).__dict__)
-    moe = cfg.family == "moe"
+    ported = cfg.family in ("moe", "hybrid")
     yi = get_smoke_config("yi_9b")
     model = build_model(yi).init(torch.Generator().manual_seed(0), device="cpu")
     pool = PoolConfig(num_pages=16, page_tokens=8, max_pages_per_seq=4)
-    if moe:
+    if ported:
         check_ported(cfg)
         assert build_model(cfg).cfg == cfg
         with pytest.raises(ValueError, match="uniform dense-attention"):

@@ -35,17 +35,18 @@ def test_config_matches_reference():
     for name in ("yi_9b", "yi-9b", "mamba2_1p3b", "mamba2-1.3b", "gemma3_12b",
                  "gemma3-12b", "olmo_1b", "olmo-1b", "yi_6b", "yi-6b", "qwen2_vl_7b",
                  "qwen2-vl-7b", "granite_moe_1b_a400m", "granite-moe-1b-a400m",
-                 "qwen3_moe_30b_a3b", "qwen3-moe-30b-a3b"):
+                 "qwen3_moe_30b_a3b", "qwen3-moe-30b-a3b", "jamba_v01_52b",
+                 "jamba-v0.1-52b"):
         assert get_config(name).__dict__ == jax_config(name).__dict__
         assert get_config(name).param_count() == jax_config(name).param_count()
     for name in ("yi_9b", "mamba2_1p3b", "gemma3_12b", "olmo_1b", "yi_6b", "qwen2_vl_7b",
-                 "granite_moe_1b_a400m", "qwen3_moe_30b_a3b"):
+                 "granite_moe_1b_a400m", "qwen3_moe_30b_a3b", "jamba_v01_52b"):
         assert get_smoke_config(name).__dict__ == jax_smoke(name).__dict__
         assert get_smoke_config(name).param_count() == jax_smoke(name).param_count()
     cfg = get_config("mamba2_1p3b")
     assert (cfg.d_inner, cfg.ssm_heads) == (4096, 64)
     with pytest.raises(KeyError):
-        get_config("jamba_v01_52b")
+        get_config("whisper_base")
 
 
 def _leaves(tree, prefix=""):

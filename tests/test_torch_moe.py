@@ -100,9 +100,17 @@ def test_init_tree_matches_reference(arch):
 
 
 def test_moe_on_an_ssm_layer_stays_refused():
-    cfg = get_smoke_config("granite_moe_1b_a400m")
+    """An SSM layer with an MoE FFN (jamba's odd positions) builds: its
+    ``ssm`` block, ``norm_mlp`` and ``moe``, no dense ``mlp``. What stays
+    refused on any layer is cross-attention."""
+    cfg = get_smoke_config("jamba_v01_52b")
+    p = ttr.init_layer(torch.Generator().manual_seed(0), cfg,
+                       LayerSpec(kind="ssm", moe=True), "cpu")
+    assert set(p) == {"norm_in", "ssm", "norm_mlp", "moe"}
+    assert p["moe"]["w_gate"].shape == (cfg.num_experts, cfg.d_model, cfg.moe_d_ff)
     with pytest.raises(NotImplementedError, match="not ported"):
-        ttr.init_layer(torch.Generator(), cfg, LayerSpec(kind="ssm", moe=True), "cpu")
+        ttr.init_layer(torch.Generator(), cfg,
+                       LayerSpec(kind="ssm", moe=True, cross_attn=True), "cpu")
 
 
 # -- routing ---------------------------------------------------------------------
