@@ -131,6 +131,23 @@ before the result line is printed:
     fp32, the bf16 model freed first), each step against a kernel
     prefill of its prefix within 1e-3 and with the same argmax; peak
     device memory after each of phases 25-28;
+29. the flash-prefill kernel against its plain version at whisper-base's
+    decoder self-attention shapes (B=1, 8/8 heads at head_dim 64, S 1, 4,
+    63 and 224), bf16 and f32, and timed at S 224 beside its bound, its
+    plain version and SDPA (each backend alone);
+30. whisper-base at full width and depth (6 encoder + 6 decoder layers,
+    d_model 512), random weights from a seed, through ``Model.prefill``
+    and ``Model.decode_step`` (the paged engine refuses cross-attention):
+    8 requests of 4-224 decoder tokens, each prefilled alone with its
+    1,500 frames (K3 6 launches a prefill, the encoder's and the
+    cross-attention's 12 layers on the memory path), self and cross caches
+    joined, 16 greedy steps at B=8 (phase 9's rule on the first), the
+    cross caches bitwise unchanged by decode; the encoder over 8 x 1,500
+    frames, a B=1 prefill and a B=8 decode step under the profiler; fp32
+    teacher forcing over all 12 layers within 1e-3, same argmax;
+31. the serving CLI (``repro_torch.launch.serve.main``) in-process at the
+    reference's defaults and with ``--sleep-us 5``: on the card, 0 sandbox
+    violations, K1 and K3 launches counted around each call;
 
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
@@ -203,6 +220,11 @@ K3_TIMED = {"yi9b_S471": (1, 471, 32, 4, 128, 0), "gemma3_global_S4096": (1, 409
 JAMBA_LAYERS, JAMBA_TF_LAYERS, JAMBA_LONG = 16, 8, 16384
 # jamba's SSD at the batched prefill of 8 x 512 tokens: 128 heads, state 16
 JAMBA_SSD_SHAPE = dict(B=8, S=512, H=128, P=64, N=16, Q=128)
+# whisper-base: decoder prompts of 4-224 tokens (its decoder context is 448
+# tokens, up to half of it the previous text); K3 checked at these lengths,
+# the first a fraction of one 64-query tile, and timed at the longest
+WHISPER_PROMPTS = (4, 224)
+WHISPER_K3_S = (1, 4, 63, 224)
 
 
 def log(msg: str) -> None:
@@ -1750,14 +1772,14 @@ def phase_mrope(model, cfg, rng, card):
     arange3 = torch.arange(S, dtype=torch.int32, device=dev)[None, None].expand(3, 1, S)
 
     def run(**kw):
-        attention_full.paths = {"flash_prefill": 0, "positions": 0}
+        attention_full.paths = dict.fromkeys(attention_full.paths, 0)
         flash_prefill_cuda.launches = 0
         logits, _ = model.prefill(toks, **kw)
         sync(dev)
         return logits, dict(attention_full.paths, k3_launches=flash_prefill_cuda.launches)
 
     l_img, paths_img = run(positions=pos)
-    if paths_img != {"flash_prefill": 0, "positions": L, "k3_launches": 0}:
+    if paths_img != {"flash_prefill": 0, "positions": L, "memory": 0, "k3_launches": 0}:
         fail(f"the image prefill's paths {paths_img}: expected {L} layers on the positions "
              "path and no flash_prefill launch")
     if not torch.isfinite(l_img).all():
@@ -1765,7 +1787,7 @@ def phase_mrope(model, cfg, rng, card):
     l_pos, paths_pos = run(positions=arange3)
     l_k3, paths_k3 = run()
     if paths_pos["positions"] != L or paths_k3 != {"flash_prefill": L, "positions": 0,
-                                                   "k3_launches": L}:
+                                                   "memory": 0, "k3_launches": L}:
         fail(f"paths: arange triples {paths_pos}, no positions {paths_k3}")
     err = (l_pos - l_k3).abs().max().item()
     if not torch.allclose(l_pos, l_k3, **TOL_BF16):
@@ -2381,6 +2403,259 @@ def phase_jamba(cfg, prompts, rng, card):
 
 
 # ---------------------------------------------------------------------------
+# phases 29-31: the encoder-decoder (whisper-base) and the serving CLI
+# ---------------------------------------------------------------------------
+def phase_whisper_kernels(gen, cfg, card):
+    """K3 at whisper's decoder self-attention shapes (B=1, 8/8 heads at
+    head_dim 64, prompts of 1 to 224 tokens), bf16 and f32 at phase 12's
+    tolerances, then timed at the longest beside its bound, its plain
+    version and SDPA (each backend alone)."""
+    H, D = cfg.num_heads, cfg.head_dim
+    errs = dict(check_k3(gen, (1, S, H, cfg.num_kv_heads, D, 0, 0.0), dtype)
+                for S in WHISPER_K3_S for dtype in (torch.bfloat16, torch.float32))
+    k3 = k3_times(Timer(), gen, 1, max(WHISPER_K3_S), H, cfg.num_kv_heads, D, 0)
+    torch.cuda.empty_cache()
+    log(f"phase 29 flash_prefill at whisper-base's decoder shapes on {card}: B1 S"
+        f"{'/'.join(map(str, WHISPER_K3_S))} {H}/{cfg.num_kv_heads} D{D} (bf16 at atol "
+        f"{TOL_K1_BF16['atol']:g}/rtol {TOL_K1_BF16['rtol']:g}, f32 at "
+        f"{TOL_F32['atol']:g}/{TOL_F32['rtol']:g}): max |err| "
+        f"{ {k: f'{v:.2e}' for k, v in errs.items()} }; times at S{max(WHISPER_K3_S)} (ms, "
+        f"median of {SAMPLES}, L2 flushed): flash_prefill {k3['ms']:.5f} "
+        f"({k3['TFLOP_per_s']:.1f} TFLOP/s), plain {k3['plain_ms']:.5f}, "
+        f"{k3['library_backend']} {k3['library_ms']:.5f} (by backend "
+        f"{json.dumps(k3['library_ms_by_backend'])}), bound {k3['bound_ms']:.5f} "
+        f"({k3['bound_by']}; {k3['bytes']} bytes, {k3['flops']} flops), host µs a call "
+        f"{k3['host_us']:.1f}")
+    return {"max_abs_err": errs, "times": {"flash_prefill": k3}}
+
+
+def whisper_frames(cfg, B, dtype, seed):
+    """(B, encoder_seq, d_model) stub-frontend frames from a numpy seed."""
+    a = np.random.default_rng(seed).standard_normal((B, cfg.encoder_seq, cfg.d_model),
+                                                    dtype=np.float32)
+    return torch.from_numpy(a).to("cuda", dtype)
+
+
+def phase_whisper_serve(cfg, model, prompts, frames, max_new, card):
+    """Each request prefilled alone (B=1) with its own frames (the encoder
+    over 1,500 frames, K3 in each decoder layer's self-attention, the
+    cross K/V of the encoder's output cached), the self and cross caches
+    joined on the batch axis, greedy decode at B=8: the first batched step
+    picks each stream's B=1 token outside near-ties (phase 9's rule), and
+    the cross caches come out of the 16 steps bitwise as they went in. Then
+    the encoder at 8 x 1,500 frames, a B=1 prefill of the longest prompt
+    and a B=8 decode step under the profiler, and a step's syncs."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.models.attention import attention_full
+    from repro_torch.models.transformer import encode
+
+    dev, B, L = model.device, len(prompts), cfg.num_layers
+    cache_len = max(len(p) for p in prompts) + max_new + 8   # room for the profiled steps
+    flash_prefill_cuda.launches = 0
+    attention_full.paths = dict.fromkeys(attention_full.paths, 0)
+    caches, first, prefill_ms = [], [], []
+    for i, prompt in enumerate(prompts):
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(toks, cache_len=cache_len, frames=frames[i:i + 1])
+        sync(dev)
+        prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        if not torch.isfinite(logits).all():
+            fail(f"{cfg.name} prefill produced non-finite logits")
+        first.append(int(logits[0].argmax()))
+        caches.append(cache)
+    launches, paths = flash_prefill_cuda.launches, dict(attention_full.paths)
+    if launches != L * B:
+        fail(f"flash_prefill launched {launches} times, expected {L} x {B} prefills")
+    if paths != {"flash_prefill": L * B, "positions": 0,
+                 "memory": (L + cfg.encoder_layers) * B}:
+        fail(f"attention paths {paths}: expected {L} flash_prefill and {L} cross + "
+             f"{cfg.encoder_layers} encoder memory layers a prefill")
+    cache = tree_cat(caches, dim=1)        # leaves are (L, B, ...): batch is axis 1
+    cross0 = tree_clone(cache["pos0"]["cross"])
+    tok = torch.tensor(first, dtype=torch.int32, device=dev)
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    logits, cache = model.decode_step(tok, pos, cache)
+    if not torch.isfinite(logits).all():
+        fail(f"{cfg.name} decode step 0 produced non-finite logits")
+    alone = torch.cat([model.decode_step(tok[i:i + 1], pos[i:i + 1], tree_clone(caches[i]))[0]
+                       for i in range(B)])
+    del caches
+    batch_err = (logits - alone).abs().max().item()
+    batch_ties = first_step_ties(logits, alone)
+    streams = [tok, logits.argmax(-1).to(torch.int32)]
+    sync(dev)
+    t0 = time.perf_counter()
+    for k in range(1, max_new):
+        logits, cache = model.decode_step(streams[-1], pos + k, cache)
+        if not torch.isfinite(logits).all():
+            fail(f"{cfg.name} decode step {k} produced non-finite logits")
+        streams.append(logits.argmax(-1).to(torch.int32))
+    sync(dev)
+    t_decode = time.perf_counter() - t0
+    if flash_prefill_cuda.launches != launches:
+        fail("decode launched flash_prefill")
+    tokens = torch.stack(streams, dim=1).tolist()
+    if [t[0] for t in tokens] != first:
+        fail("a stream does not start from the argmax of its own prefill")
+    if changed := [k for k, v in cross0.items() if not torch.equal(cache["pos0"]["cross"][k], v)]:
+        fail(f"decode rewrote the sealed cross caches: {changed}")
+
+    state = {"tok": streams[-1], "k": max_new}
+
+    def step():
+        logits, _ = model.decode_step(state["tok"], pos + state["k"], cache)
+        state["tok"] = logits.argmax(-1).to(torch.int32)
+        state["k"] += 1
+
+    syncs = count_syncs(step)
+    n_syncs = sum(syncs.values())
+    prof = profile_steps(step, dev, steps=3)
+    enc_prof = profile_steps(lambda: encode(model["encoder"], cfg, frames), dev, steps=2)
+    longest = max(prompts, key=len)
+    toks = torch.tensor([longest], dtype=torch.int32, device=dev)
+    prefill_prof = profile_steps(lambda: model.prefill(toks, frames=frames[:1]), dev, steps=2,
+                                 watch=("flash_prefill",))
+    del cache
+    torch.cuda.empty_cache()
+    step_ms = 1e3 * t_decode / (max_new - 1)
+    info = {"prompt_lens": [len(p) for p in prompts], "cache_len": cache_len,
+            "prefill_ms": prefill_ms, "launches": launches, "attention_paths": paths,
+            "batched_vs_alone_max_abs_err": batch_err,
+            "batched_vs_alone_near_ties": batch_ties, "cross_cache_unchanged": True,
+            f"decode_step_ms_b{B}": step_ms, f"decode_tokens_per_s_b{B}": 1e3 * B / step_ms,
+            "decode_syncs_per_step": n_syncs, "decode_syncs_by_line": syncs,
+            "decode_profile": prof, "encoder_profile": enc_prof,
+            "prefill_b1_profile": prefill_prof}
+    log(f"phase 30 {cfg.name} main path on {card}: {B} prefills alone with "
+        f"{cfg.encoder_seq} frames each (decoder prompt lengths {info['prompt_lens']}), "
+        f"flash_prefill launches {launches} = {L} x {B}, memory path {paths['memory']} = "
+        f"({cfg.encoder_layers} encoder + {L} cross) x {B}, prefill ms "
+        f"{[round(t, 1) for t in prefill_ms]}; self and cross caches joined, {max_new} greedy "
+        f"steps at B={B}: logits finite, first step vs each stream alone: tokens equal but at "
+        f"near-ties {batch_ties}, max |Δlogit| {batch_err:.3e}; cross caches bitwise "
+        f"unchanged; decode step {step_ms:.2f} ms (the {max_new - 1} steps after the "
+        f"first), {info[f'decode_tokens_per_s_b{B}']:.1f} tokens/s")
+    log(f"phase 30 where whisper-base's time goes on {card}: encoder over {B} x "
+        f"{cfg.encoder_seq} frames (2 passes, then 2 under the profiler): "
+        f"{profile_line(enc_prof)}; B=1 prefill of {len(longest)} tokens with its frames: "
+        f"{profile_line(prefill_prof)}; flash_prefill "
+        f"{prefill_prof['watch_ms_per_step']['flash_prefill']:.4f} ms a prefill; B={B} decode "
+        f"step ({n_syncs} device-to-host syncs, by line {syncs}): {profile_line(prof)}")
+    return info
+
+
+def phase_whisper_teacher_forced(model, cfg, card, K=100, steps=8):
+    """The served model in fp32, all of its layers (encoder and decoder):
+    B=2 with frames from a numpy seed, each decode step against a kernel
+    prefill of its prefix plus that token, within 1e-3 and with the same
+    argmax. The model is converted in place: it is the phase's last use."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+
+    m32 = model.float()
+    dev = m32.device
+    frames = whisper_frames(cfg, 2, torch.float32, seed=31)
+    toks = torch.from_numpy(np.random.default_rng(32).integers(
+        1, cfg.vocab_size, size=(2, K + steps)).astype(np.int32)).to(dev)
+    n0 = flash_prefill_cuda.launches
+    errs = []
+    logits, cache = m32.prefill(toks[:, :K], cache_len=K + steps, frames=frames)
+    for t in range(K, K + steps):
+        ref, _ = m32.prefill(toks[:, : t + 1], frames=frames)
+        logits, cache = m32.decode_step(toks[:, t], torch.full((2,), t, dtype=torch.int32,
+                                                               device=dev), cache)
+        errs.append((logits - ref).abs().max().item())
+        if not torch.equal(logits.argmax(-1), ref.argmax(-1)):
+            fail(f"fp32 decode step {t} picks another token than the prefill of its prefix")
+    if flash_prefill_cuda.launches - n0 != cfg.num_layers * (steps + 1):
+        fail("the fp32 prefills did not all run the flash-prefill kernel")
+    err = max(errs)
+    if err > TOL_TF:
+        fail(f"fp32 decode vs prefill max |err| {err:.3e} > {TOL_TF:g}")
+    log(f"phase 30 {cfg.name} fp32 teacher forcing on {card}: all {cfg.encoder_layers} + "
+        f"{cfg.num_layers} layers in fp32, B=2 with {cfg.encoder_seq} frames, prefill {K} "
+        f"tokens, {steps} decode steps each against a kernel prefill of its prefix: max |err| "
+        f"{err:.3e} (atol {TOL_TF:g}), argmax equal")
+    return {"max_abs_err": err, "per_step": errs}
+
+
+def phase_whisper(cfg, rng, card):
+    """whisper-base at published width and depth, random weights from seed
+    0, frames from a numpy seed: the main path, then fp32 teacher forcing."""
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"model: {cfg.name} {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers, "
+        f"{n_params / 1e6:.2f} M params (analytic {cfg.param_count() / 1e6:.2f} M), "
+        f"initialised in {time.perf_counter() - t0:.1f} s")
+    lo, hi = WHISPER_PROMPTS
+    lens = [lo, hi] + rng.integers(lo + 1, hi, size=6).tolist()
+    prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in lens]
+    frames = whisper_frames(cfg, len(prompts), torch.bfloat16, seed=30)
+    serve = phase_whisper_serve(cfg, model, prompts, frames, MAX_NEW, card)
+    tf = phase_whisper_teacher_forced(model, cfg, card)
+    del model
+    torch.cuda.empty_cache()
+    return {"params": n_params, "serve": serve, "teacher_forced": tf}
+
+
+def phase_serve_cli(card):
+    """``repro_torch.launch.serve.main`` in-process at the reference's
+    defaults (16 requests, 12 new tokens, d_model 256, 4 layers, 8 active),
+    then with ``--sleep-us 5``: on the card, 0 sandbox violations, every
+    page and seal returned, K3 once a layer per prefill and K1 once a layer
+    per decode step, counted around each call."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.launch import serve
+
+    runs = {}
+    for argv in ([], ["--sleep-us", "5"]):
+        out = io.StringIO()
+        paged_attention.launches = flash_prefill_cuda.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            eng = serve.main(argv)
+        sync(eng.device)
+        wall = time.perf_counter() - t0
+        k1, k3 = paged_attention.launches, flash_prefill_cuda.launches
+        L, n_req = eng.cfg.num_layers, len(eng.finished)
+        name = " ".join(argv) or "defaults"
+        if eng.device.type != "cuda":
+            fail(f"the CLI ({name}) served on {eng.device}")
+        if eng.oob_events:
+            fail(f"the CLI ({name}): {eng.oob_events} sandbox violations")
+        if eng.pool.stats()["sealed_pages"]:
+            fail(f"the CLI ({name}) left sealed pages: {eng.pool.stats()}")
+        if (k1, k3) != (L * eng.decode_steps, L * n_req) or n_req != 16:
+            fail(f"the CLI ({name}): paged_attention {k1} and flash_prefill {k3} launches, "
+                 f"expected {L} x {eng.decode_steps} steps and {L} x 16 prefills")
+        if eng.policy.fixed != (5.0 if argv else None):
+            fail(f"the CLI ({name}) left the engine's policy at {eng.policy.fixed}")
+        runs[name] = {"paged_attention": k1, "flash_prefill": k3,
+                      "decode_steps": eng.decode_steps, "oob_events": eng.oob_events,
+                      "policy_fixed_us": eng.policy.fixed, "wall_s": wall,
+                      "printed": out.getvalue().splitlines()}
+        eng.shutdown()
+        del eng
+    log(f"phase 31 the serving CLI on {card} (python -m repro_torch.launch.serve, in-process): "
+        + "; ".join(f"{name}: {r['decode_steps']} decode steps, paged_attention launches "
+                    f"{r['paged_attention']}, flash_prefill launches {r['flash_prefill']}, "
+                    f"sandbox violations {r['oob_events']}, policy sleep "
+                    f"{r['policy_fixed_us']} µs, {r['wall_s']:.2f} s; printed "
+                    f"{[line for line in r['printed'] if not line.startswith('  req')]}"
+                    for name, r in runs.items()))
+    return runs
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2516,6 +2791,13 @@ def main() -> int:
                                        if k.startswith(prefix)))
     jamba = phase_jamba(jcfg, j_prompts, rng, card)
 
+    # the encoder-decoder: K3 at whisper's decoder shapes, the model, the CLI
+    wcfg = get_config("whisper_base")
+    w_kernels = phase_whisper_kernels(gen, wcfg, card)
+    errs["flash_prefill"] = max(errs["flash_prefill"], *w_kernels["max_abs_err"].values())
+    whisper = phase_whisper(wcfg, rng, card)
+    cli = phase_serve_cli(card)
+
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention/kernel.py:189"),
@@ -2543,6 +2825,9 @@ def main() -> int:
         **{name: {"flash_prefill": m["serve"]["launches"]} for name, m in moes.items()},
         jcfg.name: {"flash_prefill": jamba["serve"]["launches"],
                     "ssd_intra_chunk": jamba["serve"]["ssd_launches"]},
+        wcfg.name: {"flash_prefill": whisper["serve"]["launches"]},
+        "serve_cli": {name: sum(r[name] for r in cli.values())
+                      for name in ("paged_attention", "flash_prefill")},
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -2564,6 +2849,7 @@ def main() -> int:
               "gemma_teacher_forced": g_tf, "gemma_times": g_times, "rpc": rpc,
               "new_layouts": new, "families": fams, "family_times": fam_times,
               "moe_kernels": moe_k3, "moe": moes, "jamba_kernels": j_kernels, "jamba": jamba,
+              "whisper_kernels": w_kernels, "whisper": whisper, "serve_cli": cli,
               "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

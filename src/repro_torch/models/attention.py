@@ -1,8 +1,9 @@
-"""GQA self-attention with RoPE, M-RoPE or no positions (jamba), optional
-q/k/v biases, qk-norm, sliding windows and a logit softcap, over dense or
-ring KV caches (bf16, fp32 or int8).
+"""GQA self-attention with RoPE, M-RoPE or no positions (jamba, whisper),
+optional q/k/v biases, qk-norm, sliding windows and a logit softcap, over
+dense or ring KV caches (bf16, fp32 or int8), and whisper's attention
+over encoder memory.
 
-Two entry modes:
+Three entry modes:
   * full-sequence prefill. Without caller-given positions the positions
     are 0..S-1 and the ``flash_prefill`` kernel (its plain version on a
     CPU tensor) computes causal attention by token index, with the
@@ -13,7 +14,13 @@ Two entry modes:
     ``attention_full.paths`` counts the layers each path ran;
   * decode — one query token per sequence against the cache, through
     ``_attend``; ``pos`` is (B,) or a 0-d tensor when every sequence is at
-    the same position.
+    the same position;
+  * memory — whisper's encoder self-attention and decoder cross-attention:
+    K and V projected from the encoder's states (``memory``), no
+    positions, no causal mask, through ``_attend`` as in the reference (the
+    ``flash_prefill`` kernel, like the TPU kernel it replaces, is causal
+    only). The prefill returns the cross cache ``{"k", "v"}``; decode
+    attends over it (``memory_cache``) and never writes it.
 
 KV caches of sliding-window layers are rings of ``min(window, cache_len)``
 slots (slot = position % size), as in the reference: gemma3's local layers
@@ -116,10 +123,10 @@ def _scalar_pos(positions):
 # ---------------------------------------------------------------------------
 def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
             softcap: float = 0.0, kv_valid: Optional[torch.Tensor] = None):
-    """q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D); *_pos: (B,S*). A key is visible
-    when ``q_pos >= kv_pos`` (causal), ``q_pos - kv_pos < window`` (when
-    ``window``) and ``kv_valid``. Scores are tanh-capped at ``softcap``
-    (0: none) before the mask.
+    """q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D); *_pos: (B,S*), or ``None`` when
+    not ``causal``. A key is visible when ``q_pos >= kv_pos`` (causal),
+    ``q_pos - kv_pos < window`` (when ``window``) and ``kv_valid``. Scores
+    are tanh-capped at ``softcap`` (0: none) before the mask.
 
     Scores materialize as (B, Hkv, qpk, Cq, Skv) fp32 for chunks of
     ``Q_CHUNK`` queries; decode has Sq = 1.
@@ -149,7 +156,8 @@ def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
     if Sq <= Q_CHUNK:
         out = attend_chunk(qg, q_pos)
     else:
-        out = torch.cat([attend_chunk(qg[:, c0:c0 + Q_CHUNK], q_pos[:, c0:c0 + Q_CHUNK])
+        out = torch.cat([attend_chunk(qg[:, c0:c0 + Q_CHUNK],
+                                      q_pos if q_pos is None else q_pos[:, c0:c0 + Q_CHUNK])
                          for c0 in range(0, Sq, Q_CHUNK)], dim=1)
     return out.reshape(B, Sq, H, Dh)
 
@@ -159,7 +167,7 @@ def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
 # ---------------------------------------------------------------------------
 def attention_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
                    want_cache: bool = False, cache_len: int = 0,
-                   caller_positions: bool = False):
+                   caller_positions: bool = False, memory=None):
     """Prefill over the full sequence. ``positions`` ((B, S), or (3, B,
     S) for M-RoPE) feed RoPE and the cache slots. Without
     ``caller_positions`` they are 0..S-1 and the ``flash_prefill`` kernel
@@ -167,8 +175,17 @@ def attention_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
     ``_scalar_pos(positions)``, as the reference does. The choice is the
     caller's, made on the host. With ``want_cache`` also returns the KV
     cache sized ``cache_len`` (>= S for decode continuation; a ring of the
-    last tokens for a windowed layer)."""
+    last tokens for a windowed layer).
+
+    With ``memory`` (B, S_mem, d) K and V come from it, ``positions`` is
+    unused and every query sees every memory row; the cache is the
+    unpositioned ``{"k", "v"}`` of the memory."""
     q = _project_q(x, p, cfg)
+    if memory is not None:
+        k, v = _project_kv(memory, p, cfg)
+        out = _attend(q, k, v, None, None, causal=False, softcap=cfg.attn_logit_softcap)
+        attention_full.paths["memory"] += 1
+        return _project_out(out, p), ({"k": k, "v": v} if want_cache else None)
     k, v = _project_kv(x, p, cfg)
     q, k = _rope_qk(q, k, positions, cfg, spec)
     pos = _scalar_pos(positions)
@@ -185,7 +202,7 @@ def attention_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
     return _project_out(out, p), cache
 
 
-attention_full.paths = {"flash_prefill": 0, "positions": 0}
+attention_full.paths = {"flash_prefill": 0, "positions": 0, "memory": 0}
 
 
 def _cache_size(window: int, cache_len: int) -> int:
@@ -229,7 +246,7 @@ def _kv_store(x, dtype):
 
 
 def attention_decode(x, p, cfg: ModelConfig, spec: LayerSpec, cache: Params,
-                     pos):
+                     pos, memory_cache: Optional[Params] = None):
     """One-token decode. x: (B, 1, D); pos: (B,) current positions, or a
     0-d tensor when every sequence is at the same position (the same slot
     of every row is written; the reference's ``dynamic_update_slice``
@@ -242,7 +259,16 @@ def attention_decode(x, p, cfg: ModelConfig, spec: LayerSpec, cache: Params,
     from ``pos``; ``rope_kind="none"`` turns nothing. ``pos`` must lie
     inside a global layer's cache; ``apply_stack_decode`` checks that
     before any layer writes.
+
+    With ``memory_cache`` (the cross cache of the prefill) the query
+    attends over its K and V, unmasked; ``cache`` and ``pos`` are unused
+    and ``cache`` is returned as it came.
     """
+    if memory_cache is not None:
+        q = _project_q(x, p, cfg)
+        out = _attend(q, memory_cache["k"], memory_cache["v"], None, None, causal=False,
+                      softcap=cfg.attn_logit_softcap)
+        return _project_out(out, p), cache
     B = x.shape[0]
     pos_vec = pos.expand(B) if pos.dim() == 0 else pos
     q = _project_q(x, p, cfg)

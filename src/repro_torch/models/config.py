@@ -3,10 +3,12 @@
 The field set is the reference package's, so a config built here names
 the same architecture; the port serves the dense family (``rmsnorm``,
 ``rope``, ``swiglu``), its vlm and moe variants, the Mamba-2 SSM family
-(``d_inner``, ``ssm_heads``) and the hybrid (jamba's attention:SSM
-super-block, ``attn_layer_period``). ``block_pattern()`` factors the
-layer stack into a repeating *super-block*; the stacked parameters carry
-one leading layer axis per pattern position.
+(``d_inner``, ``ssm_heads``), the hybrid (jamba's attention:SSM
+super-block, ``attn_layer_period``) and the encoder–decoder (whisper:
+``encoder_layers``, a cross-attention on every decoder layer).
+``block_pattern()`` factors the layer stack into a repeating
+*super-block*; the stacked parameters carry one leading layer axis per
+pattern position.
 """
 
 from __future__ import annotations
@@ -133,20 +135,21 @@ class ModelConfig:
         return self.num_layers // len(self.block_pattern())
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + per-layer), the
-        reference's formula for the ported families (dense, vlm, moe, ssm,
-        hybrid). Like the reference it counts a dense FFN only on
-        attention layers and in the ssm family: a hybrid's non-MoE SSM
-        layers hold one (``init_layer``) that the count leaves out."""
+        """Analytic parameter count (embedding + per-layer, and the
+        encoder's), the reference's formula. Like the reference it counts a
+        dense FFN only on attention layers and in the ssm family: a
+        hybrid's non-MoE SSM layers hold one (``init_layer``) that the
+        count leaves out."""
         d, v = self.d_model, self.vocab_size
         total = d * v
         if not self.tie_embeddings:
             total += d * v
         for spec in self.block_pattern() * self.num_blocks:
             if spec.kind == "attn":
-                total += d * self.num_heads * self.head_dim \
+                qkv = d * self.num_heads * self.head_dim \
                     + 2 * d * self.num_kv_heads * self.head_dim \
                     + self.num_heads * self.head_dim * d
+                total += 2 * qkv if spec.cross_attn else qkv
             else:
                 di, ds, h = self.d_inner, self.ssm_state, self.ssm_heads
                 total += d * (2 * di + 2 * ds + h)      # in_z, in_x, in_B, in_C, in_dt
@@ -159,4 +162,8 @@ class ModelConfig:
             elif self.d_ff and (spec.kind == "attn" or self.family == "ssm"):
                 total += (3 if self.mlp_kind == "swiglu" else 2) * d * self.d_ff
             total += 2 * d  # norms (approx)
+        if self.encoder_layers:
+            n = 3 if self.mlp_kind == "swiglu" else 2
+            total += self.encoder_layers * (4 * d * self.num_heads * self.head_dim
+                                            + n * d * self.d_ff)
         return total

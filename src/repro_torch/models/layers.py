@@ -1,6 +1,7 @@
 """Shared building blocks: init, RMSNorm (plain and gemma's ``1 + w``),
-OLMo's non-parametric LayerNorm, rotary embeddings (RoPE and Qwen2-VL's
-M-RoPE), SwiGLU, embedding and unembedding.
+LayerNorm (OLMo's without parameters, whisper's with a scale and a bias),
+rotary embeddings (RoPE and Qwen2-VL's M-RoPE), the SwiGLU and tanh-GELU
+MLPs, embedding and unembedding.
 
 Plain functions over explicit parameter trees (nested dicts, or the
 ``ModuleDict``/``ParameterDict`` nesting of ``Model`` — both index the
@@ -33,16 +34,21 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
     return w.to(device=device, dtype=dtype)
 
 
-NORM_KINDS = ("rmsnorm", "rmsnorm_gemma", "layernorm_np")
+NORM_KINDS = ("rmsnorm", "rmsnorm_gemma", "layernorm_np", "layernorm")
+MLP_KINDS = ("swiglu", "gelu")
 
 
 def init_norm(d: int, kind: str, device=None) -> Params:
     """RMSNorm scales: ones, or zeros for gemma's ``(1 + w)`` form; OLMo's
-    LayerNorm has no parameters (an empty subtree, as in the reference)."""
+    LayerNorm has no parameters (an empty subtree, as in the reference);
+    whisper's has a scale of ones and a bias of zeros."""
     if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported")
     if kind == "layernorm_np":
         return {}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=torch.bfloat16, device=device),
+                "bias": torch.zeros((d,), dtype=torch.bfloat16, device=device)}
     fill = torch.zeros if kind == "rmsnorm_gemma" else torch.ones
     return {"scale": fill((d,), dtype=torch.bfloat16, device=device)}
 
@@ -70,12 +76,25 @@ def layernorm_np(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((x - mu) * torch.rsqrt(var + eps)).to(dt)
 
 
+def layernorm(x: torch.Tensor, w, b, eps: float = 1e-5) -> torch.Tensor:
+    """whisper's LayerNorm: fp32 statistics (two passes, as the reference),
+    then ``w``, then ``b``, then the cast back to the input dtype."""
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
 def apply_norm(x: torch.Tensor, params, kind: str, eps: float):
     """``params`` may be ``None`` or empty for ``layernorm_np``."""
     if kind not in NORM_KINDS:
         raise NotImplementedError(f"norm kind {kind!r} is not ported")
     if kind == "layernorm_np":
         return layernorm_np(x, eps)
+    if kind == "layernorm":
+        return layernorm(x, params["scale"], params["bias"], eps)
     return rmsnorm(x, params["scale"], eps, gemma=kind == "rmsnorm_gemma")
 
 
@@ -139,18 +158,30 @@ def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 def mlp_apply(x: torch.Tensor, p, kind: str) -> torch.Tensor:
-    if kind != "swiglu":
+    """SwiGLU, or whisper's tanh-approximate GELU with the ``bi`` and
+    ``bo`` biases."""
+    if kind not in MLP_KINDS:
         raise NotImplementedError(f"mlp kind {kind!r} is not ported")
-    h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
-    return h @ p["wo"]
+    if kind == "swiglu":
+        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+        return h @ p["wo"]
+    return F.gelu(x @ p["wi"] + p["bi"], approximate="tanh") @ p["wo"] + p["bo"]
 
 
 def init_mlp(gen, d: int, d_ff: int, kind: str, device=None) -> Params:
-    if kind != "swiglu":
+    """SwiGLU's three matrices, or GELU's two with zero biases."""
+    if kind not in MLP_KINDS:
         raise NotImplementedError(f"mlp kind {kind!r} is not ported")
+    if kind == "gelu":
+        return {
+            "wi": dense_init(gen, (d, d_ff), device=device),
+            "bi": torch.zeros((d_ff,), dtype=torch.bfloat16, device=device),
+            "wo": dense_init(gen, (d_ff, d), device=device),
+            "bo": torch.zeros((d,), dtype=torch.bfloat16, device=device),
+        }
     return {
         "wi_gate": dense_init(gen, (d, d_ff), device=device),
         "wi_up": dense_init(gen, (d, d_ff), device=device),

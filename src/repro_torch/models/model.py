@@ -1,5 +1,6 @@
-"""Top-level Model for the dense, vlm (Qwen2-VL's backbone), moe, SSM and
-hybrid (jamba) families: init, prefill, decode.
+"""Top-level Model for the dense, vlm (Qwen2-VL's backbone), moe, SSM,
+hybrid (jamba) and audio (whisper's encoder–decoder backbone) families:
+init, prefill, decode.
 
 ``Model`` is an ``nn.ModuleDict`` whose parameter tree has the reference
 tree's key paths (``embed.tok``, ``stack.pos0.attn.wq``, ``norm_f.scale``)
@@ -18,8 +19,10 @@ from torch import nn
 from ..convert import params_from_numpy
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
-from .layers import NORM_KINDS, apply_norm, embed_tokens, init_embed, init_norm, unembed
-from .transformer import apply_stack_decode, apply_stack_full, empty_stack_cache, init_stack
+from .layers import (MLP_KINDS, NORM_KINDS, apply_norm, embed_tokens, init_embed, init_norm,
+                     unembed)
+from .transformer import (apply_stack_decode, apply_stack_full, empty_stack_cache, encode,
+                          init_encoder, init_stack)
 
 Params = Dict[str, Any]
 
@@ -40,19 +43,21 @@ def check_ported(cfg: ModelConfig) -> None:
     dense (RoPE, SwiGLU; optionally gemma's RMSNorm, OLMo's LayerNorm,
     q/k/v biases, qk-norm, sliding windows and a logit softcap), vlm (the
     same with M-RoPE), moe (the dense family's attention with an MoE FFN),
-    Mamba-2 SSM (no positions) and the hybrid (attention without
-    positions among SSM layers, with or without MoE FFNs, as jamba).
-    Encoders stay refused."""
+    Mamba-2 SSM (no positions), the hybrid (attention without positions
+    among SSM layers, with or without MoE FFNs, as jamba) and audio
+    (whisper: an encoder, a decoder without positions whose layers attend
+    over the encoder's output, LayerNorm with parameters, the GELU MLP).
+    Only the audio family has an encoder."""
     rope = {"dense": "rope", "vlm": "mrope", "moe": "rope", "ssm": "none",
-            "hybrid": "none"}
+            "hybrid": "none", "audio": "none"}
     experts = {"moe": (True,), "hybrid": (False, True)}
     unported = [
         name for name, bad in (
             (f"family {cfg.family!r}", cfg.family not in rope),
             ("norm_kind", cfg.norm_kind not in NORM_KINDS),
             ("rope_kind", cfg.rope_kind != rope.get(cfg.family)),
-            ("mlp_kind", cfg.mlp_kind != "swiglu"),
-            ("encoder_layers", bool(cfg.encoder_layers)),
+            ("mlp_kind", cfg.mlp_kind not in MLP_KINDS),
+            ("encoder_layers", bool(cfg.encoder_layers) != (cfg.family == "audio")),
             ("num_experts",
              bool(cfg.num_experts) not in experts.get(cfg.family, (False,))),
         ) if bad]
@@ -85,6 +90,8 @@ class Model(nn.ModuleDict):
             "stack": init_stack(generator, cfg, dev),
             "norm_f": init_norm(cfg.d_model, cfg.norm_kind, dev),
         }
+        if cfg.encoder_layers:
+            tree["encoder"] = init_encoder(generator, cfg, dev)
         return self._install(tree)
 
     def load_params(self, tree: Mapping[str, Any], device: DeviceLike = None
@@ -99,8 +106,16 @@ class Model(nn.ModuleDict):
         return self
 
     # -- serving ------------------------------------------------------------
+    def _memory(self, frames: Optional[torch.Tensor]):
+        """The encoder's output for ``frames``, or ``None`` without frames
+        or without an encoder (the reference's ``_memory``)."""
+        if self.cfg.encoder_layers and frames is not None:
+            return encode(self["encoder"], self.cfg, frames)
+        return None
+
     def prefill(self, tokens: torch.Tensor, cache_len: Optional[int] = None,
-                positions: Optional[torch.Tensor] = None):
+                positions: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None):
         """tokens: (B, S) int. Returns (last-token logits (B, V) fp32,
         cache). An attention layer's cache leaves are (L, B, cache_len,
         Hkv, D); an SSM layer's are the conv tails (L, B, K-1, C) in the
@@ -111,7 +126,14 @@ class Model(nn.ModuleDict):
         the positions are 0..S-1 (three equal streams for M-RoPE) and
         attention runs the ``flash_prefill`` kernel; with them it masks by
         the temporal stream's values, as the reference does
-        (``attention_full``)."""
+        (``attention_full``).
+
+        ``frames``: whisper's (B, S_enc, d_model) stub-frontend embeddings,
+        the reference's ``batch["frames"]``. The encoder runs over them and
+        each cross-attention layer caches the K and V of its output under
+        ``cross`` ((L, B, S_enc, Hkv, D)). Without frames there is no
+        memory: the cross-attention layers are skipped and the cache has
+        no ``cross``, as in the reference."""
         cfg = self.cfg
         B, S = tokens.shape
         cache_len = cache_len or S
@@ -128,7 +150,8 @@ class Model(nn.ModuleDict):
                              f"for rope kind {cfg.rope_kind!r}")
         x, _, cache = apply_stack_full(x, self["stack"], cfg, positions,
                                        want_cache=True, cache_len=cache_len,
-                                       caller_positions=given)
+                                       caller_positions=given,
+                                       memory=self._memory(frames))
         x = apply_norm(x[:, -1:], self["norm_f"], cfg.norm_kind, cfg.norm_eps)
         return unembed(x, self["embed"])[:, 0].float(), cache
 
@@ -147,8 +170,9 @@ class Model(nn.ModuleDict):
     def empty_cache(self, batch: int, cache_len: int,
                     kv_dtype=torch.bfloat16) -> Params:
         """Empty decode caches; ``kv_dtype`` bf16, fp32 or int8 (stored at
-        ``attention.KV_INT8_SCALE``) for the attention layers."""
-        return empty_stack_cache(self.cfg, batch, cache_len,
+        ``attention.KV_INT8_SCALE``) for the attention layers; the cross
+        caches hold ``encoder_seq`` bf16 slots."""
+        return empty_stack_cache(self.cfg, batch, cache_len, enc_len=self.cfg.encoder_seq,
                                  kv_dtype=kv_dtype, device=self.device)
 
 

@@ -1,7 +1,8 @@
 """Decoder stack: dense self-attention layers (global or sliding-window,
-as gemma3's 5:1 local:global super-block) and Mamba-2 SSM layers, mixed
-in jamba's 1:7 attention:SSM super-block, each with a dense SwiGLU FFN or
-a mixture-of-experts FFN (``moe.py``).
+as gemma3's 5:1 local:global super-block; with a cross-attention over
+encoder memory in whisper's decoder) and Mamba-2 SSM layers, mixed in
+jamba's 1:7 attention:SSM super-block, each with a dense FFN (SwiGLU or
+GELU) or a mixture-of-experts FFN (``moe.py``); and whisper's encoder.
 
 Parameters for each super-block position are stacked over blocks with a
 leading layer axis (``stack.pos0.attn.wq`` is ``(L, d, H, Dh)``), as in
@@ -11,6 +12,12 @@ only when ``d_ff > 0`` (an SSM layer of mamba2 has none; jamba's have
 one); an MoE layer, attention or SSM, has an MoE FFN in its place. A
 norm's subtree is empty for OLMo's non-parametric LayerNorm. A windowed
 position's cache leaves are rings of ``min(window, cache_len)`` slots.
+A cross-attention layer's cache also holds the encoder memory's K and V
+(``cross``), written by the prefill and only read by decode.
+
+The encoder (``encode``) is whisper's: sinusoidal positions added to the
+stub frontend's frames, then ``encoder_layers`` bidirectional blocks
+stacked under ``encoder.blocks`` and a final ``encoder.norm_out``.
 """
 
 from __future__ import annotations
@@ -39,21 +46,25 @@ def tree_index(tree, i: int):
 
 
 def _check_ported(spec: LayerSpec) -> None:
-    if spec.kind not in ("attn", "ssm") or spec.cross_attn:
+    if spec.kind not in ("attn", "ssm"):
         raise NotImplementedError(
-            f"layer {spec} is not ported: the port serves self-attention "
-            "(global or sliding-window) and SSM layers, each with a dense "
-            "or MoE FFN or none, and no cross-attention")
+            f"layer {spec} is not ported: the port serves attention layers "
+            "(global or sliding-window, optionally with cross-attention) and "
+            "SSM layers, each with a dense or MoE FFN or none")
 
 
 # ---------------------------------------------------------------------------
 # one layer
 # ---------------------------------------------------------------------------
 def init_layer(gen, cfg: ModelConfig, spec: LayerSpec, device=None) -> Params:
+    """An SSM layer ignores ``spec.cross_attn``, as the reference's does."""
     _check_ported(spec)
     p = {"norm_in": init_norm(cfg.d_model, cfg.norm_kind, device)}
     if spec.kind == "attn":
         p["attn"] = init_attention(gen, cfg, device)
+        if spec.cross_attn:
+            p["norm_cross"] = init_norm(cfg.d_model, cfg.norm_kind, device)
+            p["cross"] = init_attention(gen, cfg, device)
     else:
         p["ssm"] = init_ssm(gen, cfg, device)
     if spec.moe or cfg.d_ff > 0:
@@ -79,26 +90,35 @@ def _ffn_residual(x, p, cfg: ModelConfig):
 
 def apply_layer_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
                      want_cache: bool = False, cache_len: int = 0,
-                     caller_positions: bool = False):
+                     caller_positions: bool = False, memory=None):
     """Prefill application. Returns (x, aux, cache); ``aux`` is the MoE
-    load-balancing loss, ``None`` for a layer without MoE."""
+    load-balancing loss, ``None`` for a layer without MoE. A
+    cross-attention layer given ``memory`` (the encoder's output) adds
+    its cross residual between the attention and the FFN and caches the
+    memory's K and V under ``cross``."""
     h = apply_norm(x, p.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
+    cache = {}
     if spec.kind == "attn":
-        a, c = attention_full(h, p["attn"], cfg, spec, positions,
-                              want_cache=want_cache, cache_len=cache_len,
-                              caller_positions=caller_positions)
-        key = "self"
+        a, cache["self"] = attention_full(h, p["attn"], cfg, spec, positions,
+                                          want_cache=want_cache, cache_len=cache_len,
+                                          caller_positions=caller_positions)
     else:
-        a, c = ssm_forward(h, p["ssm"], cfg, want_state=want_cache)
-        key = "ssm"
-    x, aux = _ffn_residual(x + a, p, cfg)
-    return x, aux, ({key: c} if want_cache else {})
+        a, cache["ssm"] = ssm_forward(h, p["ssm"], cfg, want_state=want_cache)
+    x = x + a
+    if "cross" in p and memory is not None:
+        h = apply_norm(x, p.get("norm_cross"), cfg.norm_kind, cfg.norm_eps)
+        a, cache["cross"] = attention_full(h, p["cross"], cfg, spec, positions,
+                                           want_cache=want_cache, memory=memory)
+        x = x + a
+    x, aux = _ffn_residual(x, p, cfg)
+    return x, aux, (cache if want_cache else {})
 
 
 def apply_layer_decode(x, p, cfg: ModelConfig, spec: LayerSpec,
                        cache: Params, pos):
     """One-token decode. Returns x; ``cache`` is updated in place (each
-    leaf keeps its dtype). The MoE aux loss is dropped."""
+    leaf keeps its dtype). The MoE aux loss is dropped. A cross-attention
+    layer whose cache holds ``cross`` attends over it and never writes it."""
     h = apply_norm(x, p.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
     if spec.kind == "attn":
         a, _ = attention_decode(h, p["attn"], cfg, spec, cache["self"], pos)
@@ -106,7 +126,13 @@ def apply_layer_decode(x, p, cfg: ModelConfig, spec: LayerSpec,
         a, new = ssm_decode_step(h, p["ssm"], cfg, cache["ssm"])
         for k, v in new.items():
             cache["ssm"][k].copy_(v)
-    return _ffn_residual(x + a, p, cfg)[0]
+    x = x + a
+    if spec.cross_attn and "cross" in cache:
+        h = apply_norm(x, p.get("norm_cross"), cfg.norm_kind, cfg.norm_eps)
+        a, _ = attention_decode(h, p["cross"], cfg, spec, None, pos,
+                                memory_cache=cache["cross"])
+        x = x + a
+    return _ffn_residual(x, p, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -115,17 +141,18 @@ def apply_layer_decode(x, p, cfg: ModelConfig, spec: LayerSpec,
 def init_stack(gen, cfg: ModelConfig, device=None) -> Params:
     """Per-layer init written into preallocated stacked leaves, so the
     full-size model never holds two copies of a leaf."""
-    out: Params = {}
-    nb = cfg.num_blocks
-    for i, spec in enumerate(cfg.block_pattern()):
-        stacked = None
-        for b in range(nb):
-            layer = init_layer(gen, cfg, spec, device)
-            if stacked is None:
-                stacked = _alloc_stacked(layer, nb)
-            _copy_into(stacked, layer, b)
-        out[f"pos{i}"] = stacked
-    return out
+    return {f"pos{i}": _init_stacked(gen, cfg, spec, cfg.num_blocks, device)
+            for i, spec in enumerate(cfg.block_pattern())}
+
+
+def _init_stacked(gen, cfg: ModelConfig, spec: LayerSpec, n: int, device):
+    stacked = None
+    for b in range(n):
+        layer = init_layer(gen, cfg, spec, device)
+        if stacked is None:
+            stacked = _alloc_stacked(layer, n)
+        _copy_into(stacked, layer, b)
+    return stacked
 
 
 def _alloc_stacked(layer, nb: int):
@@ -144,11 +171,12 @@ def _copy_into(stacked, layer, b: int) -> None:
 
 def apply_stack_full(x, stack, cfg: ModelConfig, positions,
                      want_cache: bool = False, cache_len: int = 0,
-                     caller_positions: bool = False):
+                     caller_positions: bool = False, memory=None):
     """Returns (x, aux, cache): ``aux`` the MoE layers' load-balancing
     losses summed (0-d fp32), cache leaves stacked (L, B, cache_len, ...).
     ``positions``: (B, S), or (3, B, S) for M-RoPE; ``caller_positions``
-    selects the attention path (``attention_full``)."""
+    selects the attention path (``attention_full``); ``memory``, the
+    encoder's output, feeds the cross-attention layers."""
     pattern = cfg.block_pattern()
     per_block: List[Params] = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -158,7 +186,7 @@ def apply_stack_full(x, stack, cfg: ModelConfig, positions,
             x, a, c = apply_layer_full(x, tree_index(stack[f"pos{i}"], b), cfg,
                                        spec, positions, want_cache=want_cache,
                                        cache_len=cache_len,
-                                       caller_positions=caller_positions)
+                                       caller_positions=caller_positions, memory=memory)
             if a is not None:
                 aux = aux + a
             caches[f"pos{i}"] = c
@@ -200,17 +228,65 @@ def apply_stack_decode(x, stack, cfg: ModelConfig, cache: Params, pos):
     return x, cache
 
 
-def empty_stack_cache(cfg: ModelConfig, batch: int, cache_len: int,
+def empty_stack_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int = 0,
                       kv_dtype=torch.bfloat16, device=None) -> Params:
-    out = {}
+    """Empty decode caches, leaves stacked (L, B, ...). A cross-attention
+    layer's ``cross`` K and V are bf16 zeros of ``enc_len`` slots whatever
+    ``kv_dtype`` is, as in the reference."""
     nb = cfg.num_blocks
+
+    def stacked(c):
+        return {k: v[None].repeat((nb,) + (1,) * v.dim()) for k, v in c.items()}
+
+    out = {}
     for i, spec in enumerate(cfg.block_pattern()):
         _check_ported(spec)
         if spec.kind == "attn":
-            key, c = "self", empty_cache(cfg, spec, batch, cache_len,
-                                         dtype=kv_dtype, device=device)
+            c = {"self": stacked(empty_cache(cfg, spec, batch, cache_len,
+                                             dtype=kv_dtype, device=device))}
+            if spec.cross_attn:
+                shape = (nb, batch, enc_len, cfg.num_kv_heads, cfg.head_dim)
+                c["cross"] = {k: torch.zeros(shape, dtype=torch.bfloat16, device=device)
+                              for k in ("k", "v")}
         else:
-            key, c = "ssm", empty_ssm_state(cfg, batch, device=device)
-        out[f"pos{i}"] = {key: {
-            k: v[None].repeat((nb,) + (1,) * v.dim()) for k, v in c.items()}}
+            c = {"ssm": stacked(empty_ssm_state(cfg, batch, device=device))}
+        out[f"pos{i}"] = c
     return out
+
+
+# ---------------------------------------------------------------------------
+# the encoder (whisper): bidirectional blocks over the stub frontend's frames
+# ---------------------------------------------------------------------------
+def _encoder_spec(cfg: ModelConfig) -> LayerSpec:
+    return LayerSpec(kind="attn", rope_theta=cfg.rope_theta)
+
+
+def init_encoder(gen, cfg: ModelConfig, device=None) -> Params:
+    """``blocks``: ``encoder_layers`` self-attention layers with their
+    FFNs, stacked; ``norm_out``: the final norm."""
+    return {"blocks": _init_stacked(gen, cfg, _encoder_spec(cfg), cfg.encoder_layers, device),
+            "norm_out": init_norm(cfg.d_model, cfg.norm_kind, device)}
+
+
+def sinusoid_positions(S: int, d: int, dtype=torch.bfloat16, device=None) -> torch.Tensor:
+    """(S, d): sines of the angles pos / 10000^(2i/d) in the first half,
+    their cosines in the second, computed in fp32 and cast to ``dtype``."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def encode(enc, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames: (B, S_enc, d), the stub frontend's embeddings. Each block
+    attends over its own normed states with no mask (``attention_full``'s
+    memory mode), then its FFN; returns the normed (B, S_enc, d)."""
+    B, S, D = frames.shape
+    x = frames + sinusoid_positions(S, D, frames.dtype, frames.device)[None]
+    spec = _encoder_spec(cfg)
+    for b in range(cfg.encoder_layers):
+        p = tree_index(enc["blocks"], b)
+        h = apply_norm(x, p.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
+        a, _ = attention_full(h, p["attn"], cfg, spec, None, memory=h)
+        x = _ffn_residual(x + a, p, cfg)[0]
+    return apply_norm(x, enc["norm_out"], cfg.norm_kind, cfg.norm_eps)

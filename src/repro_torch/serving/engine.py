@@ -296,8 +296,8 @@ class StreamScheduler:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, model: Model, pool_cfg: PoolConfig,
-                 max_active: int = 8, quota_pages: Optional[int] = None,
-                 pod: str = "pod0",
+                 max_active: int = 8, sleep_us: Optional[float] = None,
+                 quota_pages: Optional[int] = None, pod: str = "pod0",
                  serve_threaded: bool = False, device: DeviceLike = None):
         check_paged_compatible(cfg)
         self.device = resolve_device(device)
@@ -348,8 +348,9 @@ class ServeEngine:
                                          BusyWaitPolicy(fixed_sleep_us=5.0))
             self.serve_loop.run_in_thread()
 
-        # §5.8 adaptive back-off between idle ticks of ``step``
-        self.policy = BusyWaitPolicy()
+        # §5.8 back-off between idle ticks of ``step``: adaptive, or a
+        # fixed ``sleep_us`` (the Fig. 13 sweep)
+        self.policy = BusyWaitPolicy(fixed_sleep_us=sleep_us)
         self.queue: List[Request] = []
         self.active: List[Request] = []
         self.finished: Dict[int, Request] = {}

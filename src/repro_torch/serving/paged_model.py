@@ -23,16 +23,19 @@ from ..models.transformer import tree_index
 
 def check_paged_compatible(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a ported, uniform self-attention stack
-    (``NotImplementedError`` for encoders, which the port does not run at
-    all; ``ValueError`` for MoE, SSM, hybrid and windowed stacks, which
-    decode over dense caches instead, as the reference's ``PagedLM``
-    refuses them)."""
+    without cross-attention (``NotImplementedError`` for what the port
+    does not run at all; ``ValueError`` for MoE, SSM, hybrid and windowed
+    stacks, which decode over dense caches instead, as the reference's
+    ``PagedLM`` refuses them, and for encoder–decoders, which the
+    reference's accepts and then decodes without their cross-attention)."""
     check_ported(cfg)
     pattern = cfg.block_pattern()
-    if len(pattern) != 1 or pattern[0].kind != "attn" or pattern[0].moe:
+    spec = pattern[0]
+    if len(pattern) != 1 or spec.kind != "attn" or spec.moe or spec.cross_attn:
         raise ValueError(
-            f"{cfg.name}: PagedLM serves uniform dense-attention stacks; "
-            "MoE/SSM/hybrid archs use the dense-cache decode path")
+            f"{cfg.name}: PagedLM serves uniform dense-attention stacks without "
+            "cross-attention; MoE/SSM/hybrid and encoder-decoder archs use the "
+            "dense-cache decode path")
 
 
 def paged_decode_step(cfg: ModelConfig, params, tokens, pos, block_tab,

@@ -725,3 +725,68 @@ def test_jamba_bf16_layers_on_card_match_cpu(dev, layers, dropless):
     assert flash_prefill_cuda.launches - f0 == n_attn
     assert ssd_intra_chunk_cuda.launches - s0 == cfg.num_layers - n_attn + n_moe
     check_forced(rows, ties, TOL[torch.bfloat16])
+
+
+# -- the encoder–decoder (whisper-base) and the serving CLI ------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 4, 63, 224])
+def test_flash_prefill_kernel_at_whisper_decoder_shapes(dev, S, dtype):
+    """whisper's decoder self-attention prefill (8/8 heads at head_dim 64)
+    over prompts of 1 to 224 tokens, the shortest a fraction of one
+    64-query tile, at K1's kernel tolerance."""
+    q, k, v = [t.to(dev) for t in _k3_inputs(1, S, 8, 8, 64, dtype, seed=S)]
+    n0 = flash_prefill_cuda.launches
+    got = flash_prefill(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_prefill_cuda.launches == n0 + 1
+    torch.testing.assert_close(got.float(), flash_prefill_ref(q, k, v).float(), **K1_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whisper_prefill_and_decode_on_card_match_cpu(dev, dtype):
+    """whisper's smoke config at head_dim 64 (the kernel's smallest): a
+    20-token prefill over 32 frames on the card (the decoder's
+    self-attention through K3, one launch a decoder layer; the encoder and
+    the cross-attention through ``_attend``), then 6 decode steps, against
+    the same model on the CPU: every cache leaf and the logits, fp32 at
+    the decode-chain tolerance (tests/test_arch_smoke.py:113), bf16 at
+    5e-2 + 5e-2·|x|. Decode leaves the cross caches on the card bitwise as
+    the prefill wrote them."""
+    cfg = replace(get_smoke_config("whisper_base"), head_dim=64)
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu").to(dtype)
+    rng = np.random.default_rng(7)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(2, 26)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32)).to(dtype)
+    tol = dict(atol=1e-3, rtol=0) if dtype == torch.float32 else TOL[torch.bfloat16]
+    model_d = copy.deepcopy(model).to(dev)
+    lc, cc = model.prefill(toks[:, :20], cache_len=26, frames=frames)
+    n0 = flash_prefill_cuda.launches
+    ld, cd = model_d.prefill(toks[:, :20].to(dev), cache_len=26, frames=frames.to(dev))
+    assert flash_prefill_cuda.launches == n0 + cfg.num_layers
+    torch.testing.assert_close(ld.cpu(), lc, **tol)
+    for part in ("self", "cross"):
+        for name, leaf in cc["pos0"][part].items():
+            torch.testing.assert_close(cd["pos0"][part][name].cpu(), leaf, **tol)
+    cross = {k: v.clone() for k, v in cd["pos0"]["cross"].items()}
+    for t in range(20, 26):
+        pos = torch.full((2,), t, dtype=torch.int32)
+        lc, cc = model.decode_step(toks[:, t], pos, cc)
+        ld, cd = model_d.decode_step(toks[:, t].to(dev), pos.to(dev), cd)
+        torch.testing.assert_close(ld.cpu(), lc, **tol)
+    assert all(torch.equal(cd["pos0"]["cross"][k], v) for k, v in cross.items())
+
+
+def test_serve_cli_on_card_runs_through_the_kernels(dev, capsys):
+    """``repro_torch.launch.serve.main`` with no ``--device`` serves on the
+    card: K3 once a layer per prefill, K1 once a layer per decode step, no
+    sandbox violation."""
+    from repro_torch.launch import serve
+
+    k1, k3 = paged_attention.launches, flash_prefill_cuda.launches
+    eng = serve.main(["--requests", "4", "--max-new", "4", "--layers", "2"])
+    out = capsys.readouterr().out
+    assert eng.device.type == "cuda" and eng.oob_events == 0
+    assert "sandbox violations: 0" in out
+    assert flash_prefill_cuda.launches - k3 == 2 * 4
+    assert paged_attention.launches - k1 == 2 * eng.decode_steps > 0

@@ -3,7 +3,7 @@
 biases, caller-given position triples) — in the port against the
 reference on the same weights and inputs: the building blocks, the init
 tree, prefill logits and caches, fp32 teacher-forced decode, image-like
-M-RoPE prefill, and what ``check_ported`` and the engine still refuse.
+M-RoPE prefill, and what the paged engine refuses.
 
 Tolerances: bf16 logits and caches ``atol=rtol=5e-2``
 (tests/test_kernels.py:30), fp32 decode chains ``1e-3``
@@ -281,30 +281,24 @@ def test_caller_positions_only_for_mrope():
         qm.prefill(toks, positions=torch.zeros((1, 3), dtype=torch.int32))
 
 
-# -- what stays refused --------------------------------------------------------------
+# -- what the paged engine refuses ---------------------------------------------------
 @pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "qwen3_moe_30b_a3b",
                                   "jamba_v01_52b", "whisper_base"])
-def test_moe_hybrid_and_encoder_configs_stay_refused(arch):
-    """The encoder stays refused everywhere. The MoE and hybrid
-    configurations are ported (``check_ported`` admits them and the model
-    builds), but the paged engine refuses them with ``ValueError``, as
-    the reference's ``PagedLM`` does: they decode over dense caches."""
+def test_moe_hybrid_and_encoder_configs_build_and_the_paged_engine_refuses_them(arch):
+    """The MoE, hybrid and encoder–decoder configurations are ported
+    (``check_ported`` admits them and the model builds), but the paged
+    engine refuses them with ``ValueError``: they decode over dense
+    caches, the MoE and hybrid ones as the reference's ``PagedLM``
+    refuses them, whisper because the paged step has no cross-attention
+    (the reference's accepts it and drops the cross-attention; ROADMAP
+    Queue 3 entry 12)."""
     cfg = ModelConfig(**jax_config(arch).__dict__)
-    ported = cfg.family in ("moe", "hybrid")
     yi = get_smoke_config("yi_9b")
     model = build_model(yi).init(torch.Generator().manual_seed(0), device="cpu")
     pool = PoolConfig(num_pages=16, page_tokens=8, max_pages_per_seq=4)
-    if ported:
-        check_ported(cfg)
-        assert build_model(cfg).cfg == cfg
-        with pytest.raises(ValueError, match="uniform dense-attention"):
-            ServeEngine(cfg, model, pool, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=f"not ported yet: family '{cfg.family}'"):
-        check_ported(cfg)
-    with pytest.raises(NotImplementedError):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
+    check_ported(cfg)
+    assert build_model(cfg).cfg == cfg
+    with pytest.raises(ValueError, match="uniform dense-attention"):
         ServeEngine(cfg, model, pool, device="cpu")
 
 

@@ -39,6 +39,12 @@ def test_no_jax_or_reference_imports(path):
     assert bad == []
 
 
+def test_guard_covers_the_launch_package():
+    """The CLI (``repro_torch/launch/``) is among the files guarded."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"launch/__init__.py", "launch/serve.py"} <= names
+
+
 def test_guard_catches_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom repro.core import heap\n"

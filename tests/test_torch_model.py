@@ -36,17 +36,18 @@ def test_config_matches_reference():
                  "gemma3-12b", "olmo_1b", "olmo-1b", "yi_6b", "yi-6b", "qwen2_vl_7b",
                  "qwen2-vl-7b", "granite_moe_1b_a400m", "granite-moe-1b-a400m",
                  "qwen3_moe_30b_a3b", "qwen3-moe-30b-a3b", "jamba_v01_52b",
-                 "jamba-v0.1-52b"):
+                 "jamba-v0.1-52b", "whisper_base", "whisper-base"):
         assert get_config(name).__dict__ == jax_config(name).__dict__
         assert get_config(name).param_count() == jax_config(name).param_count()
     for name in ("yi_9b", "mamba2_1p3b", "gemma3_12b", "olmo_1b", "yi_6b", "qwen2_vl_7b",
-                 "granite_moe_1b_a400m", "qwen3_moe_30b_a3b", "jamba_v01_52b"):
+                 "granite_moe_1b_a400m", "qwen3_moe_30b_a3b", "jamba_v01_52b",
+                 "whisper_base"):
         assert get_smoke_config(name).__dict__ == jax_smoke(name).__dict__
         assert get_smoke_config(name).param_count() == jax_smoke(name).param_count()
     cfg = get_config("mamba2_1p3b")
     assert (cfg.d_inner, cfg.ssm_heads) == (4096, 64)
-    with pytest.raises(KeyError):
-        get_config("whisper_base")
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("whisper_large")
 
 
 def _leaves(tree, prefix=""):

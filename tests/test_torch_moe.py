@@ -99,18 +99,20 @@ def test_init_tree_matches_reference(arch):
     assert not any(".mlp." in n for n in got)
 
 
-def test_moe_on_an_ssm_layer_stays_refused():
+def test_moe_on_an_ssm_layer_builds_and_ignores_cross_attn():
     """An SSM layer with an MoE FFN (jamba's odd positions) builds: its
-    ``ssm`` block, ``norm_mlp`` and ``moe``, no dense ``mlp``. What stays
-    refused on any layer is cross-attention."""
+    ``ssm`` block, ``norm_mlp`` and ``moe``, no dense ``mlp``. Asked for
+    cross-attention it builds the same tree, as the reference's
+    ``init_layer`` does: only an attention layer gets ``cross``."""
     cfg = get_smoke_config("jamba_v01_52b")
     p = ttr.init_layer(torch.Generator().manual_seed(0), cfg,
                        LayerSpec(kind="ssm", moe=True), "cpu")
     assert set(p) == {"norm_in", "ssm", "norm_mlp", "moe"}
     assert p["moe"]["w_gate"].shape == (cfg.num_experts, cfg.d_model, cfg.moe_d_ff)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ttr.init_layer(torch.Generator(), cfg,
-                       LayerSpec(kind="ssm", moe=True, cross_attn=True), "cpu")
+    crossed = ttr.init_layer(torch.Generator().manual_seed(0), cfg,
+                             LayerSpec(kind="ssm", moe=True, cross_attn=True), "cpu")
+    assert set(crossed) == set(p)
+    assert all(torch.equal(crossed["moe"][k], p["moe"][k]) for k in p["moe"])
 
 
 # -- routing ---------------------------------------------------------------------
