@@ -148,6 +148,26 @@ before the result line is printed:
 31. the serving CLI (``repro_torch.launch.serve.main``) in-process at the
     reference's defaults and with ``--sleep-us 5``: on the card, 0 sandbox
     violations, K1 and K3 launches counted around each call;
+32. the kernels' gradients: ``FlashPrefillFn`` (K3's forward, the plain
+    gradient of ``grad.py``) against ``flash_prefill_vjp`` on the plain
+    forward at olmo-1b's training shape and gemma3's (D 256, window 1,024,
+    a softcap), fp32 (also against autograd of the plain version) and
+    bf16, with K3's forward, the plain vjp and SDPA's forward + backward
+    timed; ``SsdIntraChunkFn`` at mamba2's shape with chunk decays above
+    88, finite in fp32 and bf16, and the chunked scan's grads through K4
+    against autograd through the token recurrence;
+33. olmo-1b at full width and depth, bf16 with fp32 AdamW state:
+    ``make_train_step`` with remat, 20 steps on one 8 x 512 batch of the
+    synthetic packed corpus (the loss falls by at least 0.5); every first
+    gradient finite and non-zero; K3 twice a layer a step (forward and
+    recompute); step ms, tokens/s, peak memory, a profiled step; an fp32
+    copy at 2 layers: gradients through K3 against the plain version's
+    within 1e-3 of each gradient's max;
+34. mamba2-1.3b the same way, with K4;
+35. the training CLI (``repro_torch.launch.train.main``) in-process: 40
+    steps with a checkpoint every 20, then ``--resume`` from step 20
+    equals the uninterrupted run bitwise (else the largest difference and
+    the ops without a deterministic implementation are printed);
 
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
@@ -160,6 +180,7 @@ jax or of the reference package. Also writes its measurements to
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -2656,6 +2677,359 @@ def phase_serve_cli(card):
 
 
 # ---------------------------------------------------------------------------
+# phases 32-35: training (the kernels' gradients, olmo-1b, mamba2-1.3b, the CLI)
+# ---------------------------------------------------------------------------
+def max_rel(got, want) -> float:
+    """max |got - want| over max |want| (1 where want is all zero)."""
+    return (got.float() - want.float()).abs().max().item() / max(
+        want.float().abs().max().item(), 1e-30)
+
+
+def k3_grad_case(gen, timer, case, dtype):
+    """``FlashPrefillFn`` (the kernel's forward) against ``flash_prefill_vjp``
+    applied to the plain forward, at one (B, S, Hq, Hkv, D, window,
+    softcap) case; fp32 also against autograd through the plain version.
+    Returns the case's errors and, in bf16, its times."""
+    from repro_torch.kernels.flash_prefill import (FlashPrefillFn, flash_prefill_ref,
+                                                   flash_prefill_vjp)
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+
+    B, S, Hq, Hkv, D, window, softcap = case
+    q, k, v = (t.requires_grad_() for t in k3_inputs(gen, B, S, Hq, Hkv, D, dtype))
+    dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    fn = lambda: FlashPrefillFn.apply(q, k, v, window, softcap, flash_prefill_cuda)  # noqa: E731
+    got = torch.autograd.grad(fn(), (q, k, v), dout)
+    with torch.no_grad():
+        plain = flash_prefill_ref(q, k, v, window=window, softcap=softcap)
+        want = flash_prefill_vjp(q, k, v, plain, dout, window=window, softcap=softcap)
+    name = f"B{B} S{S} {Hq}/{Hkv} D{D} w{window} cap{softcap:g} {str(dtype)[6:]}"
+    out = {"max_abs_err": 0.0}
+    for part, g, w in zip("qkv", got, want):
+        if g.dtype != dtype or not torch.isfinite(g.float()).all():
+            fail(f"flash_prefill's d{part} is not finite {dtype} ({name})")
+        if not torch.allclose(g.float(), w.float(), **(TOL_F32 if dtype == torch.float32
+                                                       else TOL_BF16)):
+            fail(f"flash_prefill's d{part} through the kernel disagrees with the plain "
+                 f"gradient ({name}): max |err| {(g.float() - w.float()).abs().max().item():.3e}")
+        out["max_abs_err"] = max(out["max_abs_err"], (g.float() - w.float()).abs().max().item())
+    if dtype == torch.float32:   # the explicit gradient against autograd's
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(flash_prefill_ref(*leaves, window=window, softcap=softcap),
+                                   leaves, dout)
+        out["vjp_vs_autograd_max_rel"] = max(max_rel(w, a) for w, a in zip(want, auto))
+        if out["vjp_vs_autograd_max_rel"] > TOL_K4:
+            fail(f"flash_prefill_vjp disagrees with autograd of the plain version ({name}): "
+                 f"{out['vjp_vs_autograd_max_rel']:.3e} of the max")
+    else:
+        from torch.nn.functional import scaled_dot_product_attention as sdpa
+        qd, kd, vd = (t.detach() for t in (q, k, v))
+        qs, ks, vs = (t.transpose(1, 2).requires_grad_() for t in (qd, kd, vd))
+        do_s = dout.transpose(1, 2)
+
+        def sdpa_fwd_bwd():
+            o = sdpa(qs, ks, vs, is_causal=True, enable_gqa=Hq != Hkv)
+            return torch.autograd.grad(o, (qs, ks, vs), do_s)
+        out.update({
+            "fwd_ms": timer.ms(lambda: flash_prefill_cuda(qd, kd, vd, window=window,
+                                                          softcap=softcap)),
+            "vjp_ms": timer.ms(lambda: flash_prefill_vjp(qd, kd, vd, plain, dout, window=window,
+                                                         softcap=softcap), samples=5),
+            "sdpa_fwd_bwd_ms": (timer.ms(sdpa_fwd_bwd, samples=5)
+                                if not window and not softcap else None)})
+    return name, out
+
+
+def phase_kernel_grads(gen, card):
+    """Phase 32: the kernels' ``autograd.Function``s on the card. K3 at
+    olmo-1b's training shape (B 8, S 512, 16/16, D 128) and gemma3's (D
+    256, window 1,024, softcap 50), fp32 and bf16, against the plain
+    gradient (``grad.py``) applied to the plain forward. K4 at mamba2's
+    shape with chunk decays above 88: the Function's grads against
+    ``ssd_intra_chunk_vjp`` on the same inputs, all finite, and the
+    chunked scan's grads through the kernel against autograd through the
+    token recurrence (B 1, fp32)."""
+    from repro_torch.kernels.ssd import (SsdIntraChunkFn, ssd_chunked, ssd_intra_chunk_vjp,
+                                         ssd_sequential_ref)
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+
+    timer = Timer()
+    k3 = dict(k3_grad_case(gen, timer, case, dtype)
+              for case in ((8, 512, 16, 16, 128, 0, 0.0), (2, 2048, 16, 8, 256, 1024, 50.0))
+              for dtype in (torch.float32, torch.bfloat16))
+    torch.cuda.empty_cache()
+
+    sh = SSD_SHAPE
+    k4 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.requires_grad_() for t in
+                ssd_inputs(gen, sh["B"], sh["S"], sh["H"], sh["P"], sh["N"], dtype)]
+        outs = SsdIntraChunkFn.apply(*args, sh["Q"], ssd_intra_chunk_cuda)
+        douts = [torch.randn(o.shape, generator=gen, device="cuda") for o in outs]
+        got = torch.autograd.grad(outs, args, douts)
+        want = ssd_intra_chunk_vjp(*[a.detach() for a in args], sh["Q"], *douts)
+        name = f"{str(dtype)[6:]}"
+        for part, g, w in zip(("x", "dt", "A", "B", "C"), got, want):
+            if g.dtype != w.dtype or not torch.isfinite(g.float()).all():
+                fail(f"ssd_intra_chunk's d{part} is not finite above a decay of 88 ({name})")
+            if not scaled_close(g.float(), w.float()):
+                fail(f"ssd_intra_chunk's d{part} through the Function differs from "
+                     f"ssd_intra_chunk_vjp ({name}): {max_rel(g, w):.3e} of the max")
+        decay = (-(args[1].detach() * args[2].detach())).reshape(
+            sh["B"], -1, sh["Q"], sh["H"]).sum(2).max().item()
+        k4[name] = {"max_chunk_decay": decay,
+                    "vjp_ms": timer.ms(lambda: ssd_intra_chunk_vjp(
+                        *[a.detach() for a in args], sh["Q"], *douts), samples=5)}
+        if decay <= 88:
+            fail(f"phase 32's K4 inputs reach a chunk decay of {decay:.1f}, not above 88")
+    # the chunked scan through the kernel against the recurrence, B 1, fp32
+    x, dt, A, Bm, Cm = ssd_inputs(gen, 1, sh["S"], sh["H"], sh["P"], sh["N"], torch.float32)
+    Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+    w = torch.randn(x.shape, generator=gen, device="cuda")
+
+    def scan_grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        y, s = fn(*leaves)
+        return torch.autograd.grad((y.float() * w).sum() + s.sum(), leaves)
+    n0 = ssd_intra_chunk_cuda.launches
+    chunked = scan_grads(lambda *a: ssd_chunked(*a, chunk=sh["Q"]))
+    if ssd_intra_chunk_cuda.launches != n0 + 1:
+        fail("ssd_chunked's forward did not launch K4 once")
+    recur = scan_grads(ssd_sequential_ref)
+    scan_rel = max(max_rel(g, r) for g, r in zip(chunked, recur))
+    if not all(torch.isfinite(g).all() for g in chunked) or scan_rel > TOL_SCAN["atol"]:
+        fail(f"the chunked scan's grads through K4 disagree with the recurrence's: "
+             f"{scan_rel:.3e} of the max")
+    max_decay = max(d["max_chunk_decay"] for d in k4.values())
+    k4["scan_vs_recurrence_max_rel"] = scan_rel
+    torch.cuda.empty_cache()
+    log(f"phase 32 kernel gradients on {card}: flash_prefill through FlashPrefillFn vs "
+        f"flash_prefill_vjp on the plain forward (f32 at atol {TOL_F32['atol']:g}, bf16 at "
+        f"atol {TOL_BF16['atol']:g}): "
+        + "; ".join(f"{n} max |err| {d['max_abs_err']:.2e}"
+                    + (f", vjp vs autograd {d['vjp_vs_autograd_max_rel']:.1e} of the max"
+                       if "vjp_vs_autograd_max_rel" in d else
+                       f", kernel fwd {d['fwd_ms']:.3f} ms, plain vjp {d['vjp_ms']:.3f} ms"
+                       + (f", SDPA fwd+bwd {d['sdpa_fwd_bwd_ms']:.3f} ms"
+                          if d["sdpa_fwd_bwd_ms"] is not None else ""))
+                    for n, d in k3.items())
+        + f"; ssd_intra_chunk at B{sh['B']} S{sh['S']} H{sh['H']} P{sh['P']} N{sh['N']} "
+        f"Q{sh['Q']} (chunk decays up to {max_decay:.1f}): "
+        f"Function grads match ssd_intra_chunk_vjp's (rel {TOL_K4:g}) and are finite in f32 "
+        f"and bf16, plain vjp "
+        f"{k4['float32']['vjp_ms']:.3f} / {k4['bfloat16']['vjp_ms']:.3f} ms; chunked scan "
+        f"through K4 vs the recurrence at B1 (f32): {scan_rel:.1e} of the max")
+    return {"flash_prefill": k3, "ssd_intra_chunk": k4,
+            "max_abs_err": max(d["max_abs_err"] for d in k3.values())}
+
+
+def train_batch(cfg, B, S, seed=0):
+    """One batch of the synthetic packed corpus, on the card."""
+    from repro_torch.training import DataConfig, SyntheticPackedDataset
+
+    b = SyntheticPackedDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                          global_batch=B, seed=seed)).batch_at(0)
+    return {k: torch.from_numpy(v).cuda() for k, v in b.items()}
+
+
+def plain_vs_kernel_grads(cfg, batch, plain, layers=2):
+    """An fp32 copy at full width and ``layers`` layers: the gradients of
+    one loss with the kernels against those with ``plain`` (a patch that
+    routes the kernel's calls through its plain version). Returns
+    the worst gradient's max |Δ| over its max |g|."""
+    from dataclasses import replace
+
+    from repro_torch.models import build_model
+
+    model = build_model(replace(cfg, num_layers=layers)).init(
+        torch.Generator("cuda").manual_seed(0))
+    for p in model.parameters():
+        p.data = p.data.float()
+    model.trainable()
+    leaves = list(model.parameters())
+    grads = []
+    for ctx in (contextlib.nullcontext(), plain):
+        with ctx:   # the backward too: remat recomputes the forward there
+            loss, _ = model.loss_fn(batch)
+            grads.append(torch.autograd.grad(loss, leaves))
+    worst = max(max_rel(g, p) for g, p in zip(*grads))
+    del model, grads
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_train_model(cfg, kernel, plain, card, n, steps=20, B=8, S=512):
+    """Phases 33 and 34: ``cfg`` at full width and depth, bf16 with fp32
+    AdamW state, trained by ``make_train_step`` (remat on) for ``steps``
+    steps on one B x S batch of the synthetic packed corpus: the loss falls
+    by at least 0.5 (tests/test_training.py's bar); the first gradient of
+    every parameter is finite and not all zero; ``kernel`` launches twice a
+    layer a step (the forward and the recompute); then step time, tokens/s,
+    peak memory and a profiled step; then ``plain_vs_kernel_grads``."""
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    init_s = time.perf_counter() - t0
+    L = layer_counts(cfg)[0 if kernel.__name__ == "flash_prefill_cuda" else 1]
+    batch = train_batch(cfg, B, S)
+
+    model.trainable()
+    names, leaves = zip(*model.named_parameters())
+    torch.cuda.reset_peak_memory_stats()
+    kernel.launches = 0
+    loss, _ = model.loss_fn(batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    first_launches = kernel.launches
+    bad = [nm for nm, g in zip(names, grads)
+           if not torch.isfinite(g).all() or not torch.count_nonzero(g)]
+    if bad:
+        fail(f"{cfg.name}: first gradients not finite or all zero: {bad}")
+    if first_launches != 2 * L:
+        fail(f"{cfg.name}: {kernel.__name__} launched {first_launches} times for one loss "
+             f"and its gradient, expected 2 x {L} (forward and recompute)")
+    grad_peak_gb = peak_gb()
+    del grads, loss
+
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
+    step = make_train_step(model, opt_cfg)
+    state = init_opt_state(model.params())
+    kernel.launches = 0
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))   # syncs
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    launches = kernel.launches
+    train_peak_gb = peak_gb()
+    if launches != 2 * L * steps:
+        fail(f"{cfg.name}: {kernel.__name__} launched {launches} times in {steps} steps, "
+             f"expected 2 x {L} a step")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] - 0.5:
+        fail(f"{cfg.name}: the loss did not fall by 0.5 in {steps} steps: {losses}")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        fail(f"{cfg.name}: a parameter is not finite after training")
+    med = float(np.median(step_ms[2:]))
+    prof = profile_steps(lambda: step(state, batch), model.device, steps=2,
+                         watch=(kernel.__name__.replace("_cuda", ""),))
+    del model, state, step
+    torch.cuda.empty_cache()
+    worst = plain_vs_kernel_grads(cfg, batch, plain)
+    if worst > TOL_TF:
+        fail(f"{cfg.name}: fp32 gradients through {kernel.__name__} differ from the plain "
+             f"path's by {worst:.3e} of a gradient's max (limit {TOL_TF:g})")
+    info = {"params": n_params, "init_s": init_s, "B": B, "S": S, "steps": steps,
+            "losses": losses, "step_ms": step_ms, "step_ms_median": med,
+            "tokens_per_s": B * S / med * 1e3, "launches": launches,
+            "launches_per_step": launches / steps, "first_grad_peak_gb": grad_peak_gb,
+            "train_peak_gb": train_peak_gb, "profile": prof,
+            "fp32_kernel_vs_plain_grads_max_rel": worst}
+    log(f"phase {n} {cfg.name} training on {card}: {n_params / 1e9:.3f} B params (bf16, fp32 "
+        f"AdamW state), {steps} steps on one {B} x {S} batch, remat on: loss {losses[0]:.4f} "
+        f"-> {losses[-1]:.4f} (min {min(losses):.4f}); first gradients finite and non-zero "
+        f"for all {len(names)} parameters; {kernel.__name__} {first_launches} launches for "
+        f"one loss and gradient and {launches / steps:.0f} a step ({L} layers x 2); step "
+        f"{med:.1f} ms (median of steps 3-{steps}, host clock, synced), "
+        f"{info['tokens_per_s']:.0f} tokens/s; peak {train_peak_gb:.2f} GB training "
+        f"({grad_peak_gb:.2f} GB for the first gradient); a step under the profiler: "
+        f"{profile_line(prof)}, {kernel.__name__.replace('_cuda', '')} "
+        f"{prof['watch_ms_per_step'][kernel.__name__.replace('_cuda', '')]:.2f} ms; fp32 at 2 "
+        f"layers: gradients with the kernel vs the plain version {worst:.2e} of the max")
+    return info
+
+
+def phase_train_cli(card, steps=40, every=20):
+    """Phase 35: ``repro_torch.launch.train.main`` in-process at the
+    reference's defaults (olmo-768x12, B 8 x S 512) for ``steps`` steps
+    with a checkpoint every ``every``; then, as after a crash once step
+    ``every``'s checkpoint was written, ``--resume``: its parameters and
+    optimizer state must equal the uninterrupted run's bitwise. K3 launches
+    twice a layer a step. The checkpoints go under build/ and are removed."""
+    import io
+    import shutil
+    import warnings
+
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.launch import train
+    from repro_torch.training.optimizer import tree_leaves
+
+    ckpt = ROOT / "build" / "train_cli_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--steps", str(steps), "--ckpt-every", str(every), "--ckpt-dir", str(ckpt)]
+    runs = {}
+    try:
+        for name, extra in (("whole", []), ("resumed", ["--resume"])):
+            out = io.StringIO()
+            flash_prefill_cuda.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                res = train.main(argv + extra)
+            sync(res["model"].device)
+            runs[name] = dict(res, wall_s=time.perf_counter() - t0,
+                              launches=flash_prefill_cuda.launches,
+                              printed=out.getvalue().splitlines())
+            if name == "whole":
+                shutil.rmtree(ckpt / f"step_{steps:09d}")
+        whole, resumed = runs["whole"], runs["resumed"]
+        L = whole["model"].cfg.num_layers
+        if resumed["model"].device.type != "cuda":
+            fail(f"the training CLI ran on {resumed['model'].device}")
+        for name, r in runs.items():
+            want = 2 * L * (steps - r["start"])
+            if r["launches"] != want:
+                fail(f"the training CLI ({name}): flash_prefill {r['launches']} launches, "
+                     f"expected {want}")
+        if resumed["start"] != every or f"resumed from step {every}" not in resumed["printed"]:
+            fail(f"the training CLI did not resume from step {every}: {resumed['printed'][:3]}")
+        diffs = {nm: (a.float() - b.float()).abs().max().item()
+                 for (nm, a), (_, b) in zip(whole["model"].named_parameters(),
+                                            resumed["model"].named_parameters())}
+        bitwise = all(torch.equal(a, b) for a, b in zip(whole["model"].parameters(),
+                                                        resumed["model"].parameters()))
+        opt_equal = all(torch.equal(a, b) for key in ("m", "v")
+                        for a, b in zip(tree_leaves(whole["opt_state"][key]),
+                                        tree_leaves(resumed["opt_state"][key])))
+        nondeterministic = []
+        if not (bitwise and opt_equal):
+            # name the ops without a deterministic implementation on a step
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.use_deterministic_algorithms(True, warn_only=True)
+                try:
+                    train.main(["--steps", "1", "--ckpt-every", "0", "--ckpt-dir",
+                                str(ckpt / "probe")])
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            nondeterministic = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                                       if "deterministic" in str(w.message)})
+            log(f"phase 35: the resumed run differs from the uninterrupted one: largest "
+                f"parameter difference {max(diffs.values()):.3e} "
+                f"({max(diffs, key=diffs.get)}); ops without a deterministic implementation: "
+                f"{nondeterministic}")
+            fail("the training CLI's resumed run does not equal the uninterrupted run")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    info = {name: {"start": r["start"], "launches": r["launches"], "wall_s": r["wall_s"],
+                   "losses": r["losses"], "printed": r["printed"]} for name, r in runs.items()}
+    info["bitwise"] = True
+    info["flash_prefill"] = whole["launches"] + resumed["launches"]
+    log(f"phase 35 the training CLI on {card} (python -m repro_torch.launch.train, in-process, "
+        f"{whole['model'].cfg.name}, {steps} steps, a checkpoint every {every}): "
+        f"uninterrupted {whole['wall_s']:.1f} s, flash_prefill {whole['launches']} launches, "
+        f"loss {whole['losses'][0]:.4f} -> {whole['losses'][-1]:.4f}; resumed from step "
+        f"{every} after removing step {steps}'s checkpoint: {resumed['wall_s']:.1f} s, "
+        f"{resumed['launches']} launches, parameters and optimizer state bitwise equal to the "
+        f"uninterrupted run's; printed {[line for line in whole['printed'] if 'step' not in line]}")
+    del runs, whole, resumed
+    torch.cuda.empty_cache()
+    return info
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2798,6 +3172,29 @@ def main() -> int:
     whisper = phase_whisper(wcfg, rng, card)
     cli = phase_serve_cli(card)
 
+    # training: the kernels' gradients, olmo-1b and mamba2-1.3b, the CLI
+    from unittest import mock
+
+    import repro_torch.kernels.ssd.ops as ssd_ops
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels.flash_prefill import flash_prefill_ref
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.ssd import ssd_intra_chunk_ref
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
+
+    grads = phase_kernel_grads(gen, card)
+    train = {
+        "olmo-1b": phase_train_model(get_config("olmo_1b"), flash_prefill_cuda,
+                                     mock.patch.object(attention, "flash_prefill",
+                                                       flash_prefill_ref),
+                                     card, 33),
+        "mamba2-1.3b": phase_train_model(get_config("mamba2_1p3b"), ssd_intra_chunk_cuda,
+                                         mock.patch.object(ssd_ops, "ssd_intra_chunk",
+                                                           ssd_intra_chunk_ref),
+                                         card, 34),
+    }
+    train_cli = phase_train_cli(card)
+
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention/kernel.py:189"),
@@ -2828,6 +3225,9 @@ def main() -> int:
         wcfg.name: {"flash_prefill": whisper["serve"]["launches"]},
         "serve_cli": {name: sum(r[name] for r in cli.values())
                       for name in ("paged_attention", "flash_prefill")},
+        "olmo-1b training": {"flash_prefill": train["olmo-1b"]["launches"]},
+        "mamba2-1.3b training": {"ssd_intra_chunk": train["mamba2-1.3b"]["launches"]},
+        "train_cli": {"flash_prefill": train_cli["flash_prefill"]},
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -2850,6 +3250,7 @@ def main() -> int:
               "new_layouts": new, "families": fams, "family_times": fam_times,
               "moe_kernels": moe_k3, "moe": moes, "jamba_kernels": j_kernels, "jamba": jamba,
               "whisper_kernels": w_kernels, "whisper": whisper, "serve_cli": cli,
+              "kernel_grads": grads, "train": train, "train_cli": train_cli,
               "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

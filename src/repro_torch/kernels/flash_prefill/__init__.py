@@ -1,4 +1,5 @@
-from .ops import flash_prefill
+from .grad import flash_prefill_vjp
+from .ops import FlashPrefillFn, flash_prefill
 from .ref import flash_prefill_ref
 
-__all__ = ["flash_prefill", "flash_prefill_ref"]
+__all__ = ["FlashPrefillFn", "flash_prefill", "flash_prefill_ref", "flash_prefill_vjp"]

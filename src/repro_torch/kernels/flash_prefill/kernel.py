@@ -6,7 +6,9 @@ copies), fp32 on the CUDA cores; both accumulate in fp32.
 
 Checks device, dtype, shape, contiguity and alignment, allocates the
 output, and launches on the current stream. Nothing here runs a plain
-PyTorch version: a tensor the kernel does not take is an error.
+PyTorch version: a tensor the kernel does not take is an error. Its
+output has no ``grad_fn``, so with grad mode on it refuses inputs that
+require grad: the differentiable path is ``ops.FlashPrefillFn``.
 ``flash_prefill_cuda.launches`` counts launches.
 """
 
@@ -31,6 +33,9 @@ def flash_prefill_cuda(q, k, v, window: int = 0, softcap: float = 0.0):
     ``softcap`` (0: none). Returns (B,S,Hq,D) in q's dtype."""
     tensors = (q, k, v)
     dev = q.device
+    _require(not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)),
+             "inputs require grad and its output would have none: call it through "
+             "ops.flash_prefill (FlashPrefillFn)")
     _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
     _require(all(t.device == dev for t in tensors), "all tensors must be on one device")
     _require(all(t.is_contiguous() for t in tensors), "all tensors must be contiguous")

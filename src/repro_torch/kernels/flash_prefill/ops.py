@@ -1,15 +1,42 @@
 """Causal prefill attention through the CUDA kernel or its plain version.
 The counterpart of ``src/repro/kernels/flash_prefill/ops.py``.
 
-The device of ``q`` decides: a CPU tensor takes ``flash_prefill_ref``; a
-CUDA tensor launches the kernel or raises. There is no backend argument
-and no fallback.
+The device of ``q`` decides: a CPU tensor takes ``flash_prefill_ref``
+under plain autograd; a CUDA tensor goes through ``FlashPrefillFn``,
+whose forward launches the kernel (or raises) and whose backward is the
+plain-torch gradient of ``grad.py``. There is no backend argument and no
+fallback.
 """
 
 from __future__ import annotations
 
+import torch
+
+from .grad import flash_prefill_vjp
 from .kernel import flash_prefill_cuda
 from .ref import flash_prefill_ref
+
+
+class FlashPrefillFn(torch.autograd.Function):
+    """``forward_fn(q, k, v, window=, softcap=)`` (the kernel's wrapper on
+    the card; the CPU tests pass ``flash_prefill_ref``) with the gradient
+    of ``flash_prefill_vjp``. q, k, v and the output are saved through
+    ``save_for_backward``, so under ``torch.utils.checkpoint`` the backward
+    reads those of the recomputed forward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, softcap: float, forward_fn):
+        out = forward_fn(q, k, v, window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.window, ctx.softcap = window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_vjp(q, k, v, out, dout, window=ctx.window,
+                                       softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None
 
 
 def flash_prefill(q, k, v, window: int = 0, softcap: float = 0.0):
@@ -18,5 +45,5 @@ def flash_prefill(q, k, v, window: int = 0, softcap: float = 0.0):
     Returns (B,S,Hq,D) in q's dtype."""
     if q.device.type == "cpu":
         return flash_prefill_ref(q, k, v, window=window, softcap=softcap)
-    return flash_prefill_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                              window=window, softcap=softcap)
+    return FlashPrefillFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                window, softcap, flash_prefill_cuda)

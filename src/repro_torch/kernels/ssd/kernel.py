@@ -4,7 +4,9 @@ which replaces the TPU kernel
 
 Checks device, dtype, shape and contiguity, allocates the outputs, and
 launches on the current stream. Nothing here runs a plain PyTorch
-version: a tensor the kernel does not take is an error.
+version: a tensor the kernel does not take is an error. Its outputs have
+no ``grad_fn``, so with grad mode on it refuses inputs that require grad:
+the differentiable path is ``ops.SsdIntraChunkFn``.
 ``ssd_intra_chunk_cuda.launches`` counts launches.
 """
 
@@ -33,6 +35,9 @@ def ssd_intra_chunk_cuda(x, dt, A, Bm, Cm, chunk: int, lib=None):
     """
     tensors = (x, dt, A, Bm, Cm)
     dev = x.device
+    _require(not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)),
+             "inputs require grad and its outputs would have none: call it through "
+             "ops.ssd_chunked (SsdIntraChunkFn)")
     _require(dev.type == "cuda", f"tensors must be on a CUDA device, got {dev}")
     _require(all(t.device == dev for t in tensors), "all tensors must be on one device")
     _require(all(t.is_contiguous() for t in tensors), "all tensors must be contiguous")

@@ -2,9 +2,11 @@
 plain version), the inter-chunk recurrence and the off-diagonal term in
 torch. The counterpart of ``src/repro/kernels/ssd/ops.py``.
 
-The device of ``x`` decides: a CPU tensor takes ``ssd_intra_chunk_ref``;
-a CUDA tensor launches the kernel or raises. There is no backend
-argument and no fallback.
+The device of ``x`` decides: a CPU tensor takes ``ssd_intra_chunk_ref``
+under plain autograd; a CUDA tensor goes through ``SsdIntraChunkFn``,
+whose forward launches the kernel (or raises) and whose backward is the
+plain-torch gradient of ``grad.py``. There is no backend argument and no
+fallback.
 """
 
 from __future__ import annotations
@@ -12,8 +14,37 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .grad import ssd_intra_chunk_vjp
 from .kernel import ssd_intra_chunk_cuda
 from .ref import ssd_intra_chunk_ref
+
+
+class SsdIntraChunkFn(torch.autograd.Function):
+    """``forward_fn(x, dt, A, Bm, Cm, chunk)`` (the kernel's wrapper on the
+    card; the CPU tests pass ``ssd_intra_chunk_ref``) with the gradient of
+    ``ssd_intra_chunk_vjp``. The inputs are saved through
+    ``save_for_backward``, so under ``torch.utils.checkpoint`` the
+    backward reads those of the recomputed forward."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk: int, forward_fn):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        return forward_fn(x, dt, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstates, ddecay):
+        grads = ssd_intra_chunk_vjp(*ctx.saved_tensors, ctx.chunk, dy, dstates, ddecay)
+        return (*grads, None, None)
+
+
+def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int):
+    """The intra-chunk step (``ssd_intra_chunk_ref``'s contract) on the
+    device of ``x``: the plain version on the CPU, the kernel through
+    ``SsdIntraChunkFn`` on the card."""
+    if x.device.type == "cpu":
+        return ssd_intra_chunk_ref(x, dt, A, Bm, Cm, chunk)
+    return SsdIntraChunkFn.apply(x, dt, A, Bm, Cm, chunk, ssd_intra_chunk_cuda)
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
@@ -34,8 +65,7 @@ def ssd_chunked(x, dt, A, Bm, Cm, chunk: int, init_state=None):
     Sp = S + pad
     nc = Sp // Q
 
-    intra = ssd_intra_chunk_ref if x.device.type == "cpu" else ssd_intra_chunk_cuda
-    y_diag, states, decay = intra(*(t.contiguous() for t in (x, dt, A, Bm, Cm)), Q)
+    y_diag, states, decay = ssd_intra_chunk(*(t.contiguous() for t in (x, dt, A, Bm, Cm)), Q)
 
     # inter-chunk state recurrence (tiny: nc steps of (B,H,N,P))
     f32 = torch.float32

@@ -1,17 +1,27 @@
 """Top-level Model for the dense, vlm (Qwen2-VL's backbone), moe, SSM,
 hybrid (jamba) and audio (whisper's encoder–decoder backbone) families:
-init, prefill, decode.
+init, training loss, prefill, decode.
 
 ``Model`` is an ``nn.ModuleDict`` whose parameter tree has the reference
 tree's key paths (``embed.tok``, ``stack.pos0.attn.wq``, ``norm_f.scale``)
 with the same shapes and dtypes, so the model itself indexes like the
 reference's params dict and can be handed to the functional layers.
-Parameters never require grad: the slice is inference only.
+Parameters are built without grad, for serving; ``trainable()`` turns
+grad on for every floating parameter, and ``loss_fn`` is then
+differentiated by ``torch.autograd`` (``repro_torch.training``).
+
+Training batches, as the reference's:
+
+  LM (dense/moe/ssm/hybrid):  {"tokens": (B,S) int, "labels": (B,S) int}
+  vlm (qwen2-vl backbone):    + {"positions": (3,B,S) int}  (M-RoPE streams)
+  audio (whisper backbone):   + {"frames": (B,S_enc,D)}     (stub frontend)
+
+Labels < 0 are masked out of the loss.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Union
 
 import torch
 from torch import nn
@@ -104,6 +114,89 @@ class Model(nn.ModuleDict):
         for k, v in tree.items():
             self[k] = _to_module(v)
         return self
+
+    def params(self) -> Params:
+        """The parameter tree as nested dicts of the model's own
+        ``nn.Parameter``s (no copies); an empty norm is ``{}``."""
+        def tree(m):
+            if isinstance(m, nn.ParameterDict):
+                return dict(m.items())
+            return {k: tree(v) for k, v in m.items()}
+        return tree(self)
+
+    @torch.no_grad()
+    def load_state(self, tree: Mapping[str, Any]) -> "Model":
+        """Copy a tree of tensors (a checkpoint's ``params``) into the
+        model's parameters in place, each converted to the parameter's
+        device; the key paths, shapes and dtypes must be the model's."""
+        def copy(dst, src, path):
+            if set(dst) != set(src):
+                raise ValueError(f"parameter tree differs at {path or '<root>'}: "
+                                 f"{sorted(set(dst) ^ set(src))}")
+            for k, d in dst.items():
+                if isinstance(d, dict):
+                    copy(d, src[k], f"{path}{k}.")
+                elif (d.shape, d.dtype) != (src[k].shape, src[k].dtype):
+                    raise ValueError(f"{path}{k}: {tuple(src[k].shape)} {src[k].dtype}, "
+                                     f"the model has {tuple(d.shape)} {d.dtype}")
+                else:
+                    d.copy_(src[k])
+        copy(self.params(), tree, "")
+        return self
+
+    def trainable(self) -> "Model":
+        """Grad on for every floating parameter."""
+        for p in self.parameters():
+            if p.is_floating_point():
+                p.requires_grad_()
+        return self
+
+    # -- training -----------------------------------------------------------
+    def _batch_positions(self, batch: Mapping[str, Any], B: int, S: int):
+        """(positions, caller_positions): M-RoPE's ``batch["positions"]``
+        when the batch has them (``_attend`` masks by their temporal
+        stream, as the reference does); otherwise 0..S-1 for the kernel
+        path. A RoPE model ignores ``batch["positions"]``, as the
+        reference's ``_positions`` does (ROADMAP Queue 3 entry 8)."""
+        if self.cfg.rope_kind == "mrope" and batch.get("positions") is not None:
+            positions = batch["positions"]
+            if tuple(positions.shape) != (3, B, S):
+                raise ValueError(f"{self.cfg.name}: batch positions are M-RoPE's "
+                                 f"(3, {B}, {S}) streams, got {tuple(positions.shape)}")
+            return positions, True
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=batch["tokens"].device)[None].expand(B, S)
+        if self.cfg.rope_kind == "mrope":
+            positions = positions[None].expand(3, B, S)
+        return positions, False
+
+    def loss_fn(self, batch: Mapping[str, Any], remat: Union[bool, str] = True):
+        """Masked next-token NLL over ``labels >= 0`` (fp32 logits and a
+        logsumexp), plus ``router_aux_coef`` times the MoE aux loss for a
+        model with experts. ``remat`` recomputes each super-block in the
+        backward (``True``/``"full"``, or ``"dots"`` keeping the matmul
+        outputs; ``apply_stack_full``). Returns (loss, metrics ``{loss,
+        tokens, aux}``), 0-d fp32; the reference's
+        ``src/repro/models/model.py:89-116``."""
+        cfg = self.cfg
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        x = embed_tokens(tokens, self["embed"], cfg.embed_scale, cfg.d_model)
+        positions, given = self._batch_positions(batch, B, S)
+        x, aux, _ = apply_stack_full(x, self["stack"], cfg, positions,
+                                     caller_positions=given,
+                                     memory=self._memory(batch.get("frames")),
+                                     remat=remat)
+        x = apply_norm(x, self["norm_f"], cfg.norm_kind, cfg.norm_eps)
+        logits = unembed(x, self["embed"]).float()
+        mask = (labels >= 0).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+        tokens_n = mask.sum()
+        loss = ((lse - tgt) * mask).sum() / torch.clamp(tokens_n, min=1.0)
+        if cfg.num_experts:
+            loss = loss + cfg.router_aux_coef * aux
+        return loss, {"loss": loss, "tokens": tokens_n, "aux": aux}
 
     # -- serving ------------------------------------------------------------
     def _memory(self, frames: Optional[torch.Tensor]):

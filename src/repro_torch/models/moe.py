@@ -75,8 +75,8 @@ def swiglu_gate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """silu(a) · b rounded where the reference rounds it: ``jax.nn.silu``
     is a · (1 / (1 + exp(−a))), each operation rounded to the activation
     dtype (``F.silu`` rounds once, which in bf16 moves the expert outputs
-    by a few ulps)."""
-    return torch.exp(-a).add_(1).reciprocal_().mul_(a).mul_(b)
+    by a few ulps). Out of place, so that autograd can differentiate it."""
+    return torch.reciprocal(torch.exp(-a) + 1) * a * b
 
 
 def capacity_slots(flat_e: torch.Tensor, num_experts: int, capacity: int):
@@ -163,15 +163,12 @@ def _dispatch_dropless(x: torch.Tensor, p, cfg: ModelConfig):
             spans.append((e, slice(start, start + n)))
             start += n
     xs = x[token_of_slot]                                     # (T·k, D), expert-sorted
-    a = xs.new_empty((T * k, cfg.moe_d_ff))
-    b = torch.empty_like(a)
-    for e, rows in spans:
-        torch.matmul(xs[rows], p["w_gate"][e], out=a[rows])
-        torch.matmul(xs[rows], p["w_up"][e], out=b[rows])
-    h = swiglu_gate(a, b)
-    out = torch.empty_like(xs)
-    for e, rows in spans:
-        torch.matmul(h[rows], p["w_down"][e], out=out[rows])
+
+    def per_expert(rows_in, w):   # each expert's product over its span, in order
+        return torch.cat([rows_in[rows] @ w[e] for e, rows in spans])
+
+    h = swiglu_gate(per_expert(xs, p["w_gate"]), per_expert(xs, p["w_up"]))
+    out = per_expert(h, p["w_down"])
 
     w_slot = weights.reshape(-1)[order].to(out.dtype)
     y = _combine(out * w_slot[:, None], token_of_slot, k)

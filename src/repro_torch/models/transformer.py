@@ -7,7 +7,12 @@ GELU) or a mixture-of-experts FFN (``moe.py``); and whisper's encoder.
 Parameters for each super-block position are stacked over blocks with a
 leading layer axis (``stack.pos0.attn.wq`` is ``(L, d, H, Dh)``), as in
 the reference; the reference's ``lax.scan`` over that axis becomes a
-Python loop over layer slices (views, no copies). A layer has an MLP
+Python loop over layer slices (views, no copies). The full-sequence
+stack takes them with one ``unbind(0)`` a stacked leaf, whose backward
+stacks the blocks' gradients once (indexing each block would write a
+full-size gradient per block), and recomputes each super-block in the
+backward under ``remat`` (``torch.utils.checkpoint``), as the
+reference's ``jax.checkpoint`` does. A layer has an MLP
 only when ``d_ff > 0`` (an SSM layer of mamba2 has none; jamba's have
 one); an MoE layer, attention or SSM, has an MoE FFN in its place. A
 norm's subtree is empty for OLMo's non-parametric LayerNorm. A windowed
@@ -22,9 +27,12 @@ stacked under ``encoder.blocks`` and a final ``encoder.norm_out``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+import functools
+from typing import Any, Dict, List, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import attention_decode, attention_full, empty_cache, init_attention
 from .config import LayerSpec, ModelConfig
@@ -43,6 +51,17 @@ def tree_index(tree, i: int):
     """Slice index ``i`` of the leading axis out of every leaf."""
     return {k: tree_index(v, i) if _is_tree(v) else v[i]
             for k, v in tree.items()}
+
+
+def tree_unbind(tree, n: int) -> List[Params]:
+    """The ``n`` slices of the leading axis of every leaf, one ``unbind``
+    a leaf: a list of ``n`` trees."""
+    out: List[Params] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = tree_unbind(v, n) if _is_tree(v) else v.unbind(0)
+        for b in range(n):
+            out[b][k] = parts[b]
+    return out
 
 
 def _check_ported(spec: LayerSpec) -> None:
@@ -169,27 +188,60 @@ def _copy_into(stacked, layer, b: int) -> None:
             stacked[k][b].copy_(v)
 
 
+# the matmul outputs ``remat="dots"`` keeps: products without batch dims,
+# as the reference's ``dots_with_no_batch_dims_saveable``
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, remat: Union[bool, str]):
+    """``fn`` recomputed in the backward: the whole of it for ``True`` or
+    ``"full"``, all but its matmul outputs for ``"dots"``; as it is for
+    ``False``."""
+    if not remat:
+        return fn
+    if remat is True or remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat must be True, False, 'full' or 'dots', got {remat!r}")
+
+
 def apply_stack_full(x, stack, cfg: ModelConfig, positions,
                      want_cache: bool = False, cache_len: int = 0,
-                     caller_positions: bool = False, memory=None):
+                     caller_positions: bool = False, memory=None,
+                     remat: Union[bool, str] = False):
     """Returns (x, aux, cache): ``aux`` the MoE layers' load-balancing
     losses summed (0-d fp32), cache leaves stacked (L, B, cache_len, ...).
     ``positions``: (B, S), or (3, B, S) for M-RoPE; ``caller_positions``
     selects the attention path (``attention_full``); ``memory``, the
-    encoder's output, feeds the cross-attention layers."""
+    encoder's output, feeds the cross-attention layers. ``remat``
+    recomputes each super-block in the backward (``_remat``); the
+    reference's ``src/repro/models/transformer.py:195-230``."""
     pattern = cfg.block_pattern()
-    per_block: List[Params] = []
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for b in range(cfg.num_blocks):
+    blocks = [tree_unbind(stack[f"pos{i}"], cfg.num_blocks) for i in range(len(pattern))]
+
+    def body(x, aux, params):
         caches = {}
         for i, spec in enumerate(pattern):
-            x, a, c = apply_layer_full(x, tree_index(stack[f"pos{i}"], b), cfg,
-                                       spec, positions, want_cache=want_cache,
-                                       cache_len=cache_len,
+            x, a, c = apply_layer_full(x, params[i], cfg, spec, positions,
+                                       want_cache=want_cache, cache_len=cache_len,
                                        caller_positions=caller_positions, memory=memory)
             if a is not None:
                 aux = aux + a
             caches[f"pos{i}"] = c
+        return x, aux, caches
+
+    body = _remat(body, remat)
+    per_block: List[Params] = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for b in range(cfg.num_blocks):
+        x, aux, caches = body(x, aux, [blk[b] for blk in blocks])
         per_block.append(caches)
     if not want_cache:
         return x, aux, None
@@ -284,8 +336,7 @@ def encode(enc, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     B, S, D = frames.shape
     x = frames + sinusoid_positions(S, D, frames.dtype, frames.device)[None]
     spec = _encoder_spec(cfg)
-    for b in range(cfg.encoder_layers):
-        p = tree_index(enc["blocks"], b)
+    for p in tree_unbind(enc["blocks"], cfg.encoder_layers):
         h = apply_norm(x, p.get("norm_in"), cfg.norm_kind, cfg.norm_eps)
         a, _ = attention_full(h, p["attn"], cfg, spec, None, memory=h)
         x = _ffn_residual(x + a, p, cfg)[0]

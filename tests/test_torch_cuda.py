@@ -1,6 +1,8 @@
-"""The port's CUDA kernels, its paged decode, its Mamba-2 prefill, and its
-gemma3, MoE and jamba prefill and decode on the card, held against the
-port's plain PyTorch versions on the same inputs. Needs a CUDA card
+"""The port's CUDA kernels, its paged decode, its Mamba-2 prefill, its
+gemma3, MoE and jamba prefill and decode, and its training (the kernels'
+``autograd.Function``s, ``Model.loss_fn``'s gradients, train steps, the
+training CLI) on the card, held against the port's plain PyTorch
+versions on the same inputs. Needs a CUDA card
 and nvcc; skips without one. Imports nothing of jax, so it also runs on a
 machine with the card and no jax:
 
@@ -8,6 +10,7 @@ machine with the card and no jax:
 """
 
 import copy
+import shutil
 from dataclasses import replace
 
 import numpy as np
@@ -790,3 +793,144 @@ def test_serve_cli_on_card_runs_through_the_kernels(dev, capsys):
     assert "sandbox violations: 0" in out
     assert flash_prefill_cuda.launches - k3 == 2 * 4
     assert paged_attention.launches - k1 == 2 * eng.decode_steps > 0
+
+
+# -- training: the kernels' gradients, loss_fn, train steps, the CLI ----------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (32, 0.0), (0, 30.0)])
+def test_flash_prefill_function_grads_on_card(dev, dtype, window, softcap):
+    """``ops.flash_prefill`` on the card goes through ``FlashPrefillFn``: one
+    launch, an output with a ``grad_fn``, and the grads of
+    ``flash_prefill_vjp`` applied to the plain forward, at K3's tolerance."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_vjp
+
+    q, k, v = [t.to(dev).requires_grad_() for t in _k3_inputs(2, 300, 8, 4, 128, dtype, seed=9)]
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dev, dtype)
+    n0 = flash_prefill_cuda.launches
+    out = flash_prefill(q, k, v, window=window, softcap=softcap)
+    assert flash_prefill_cuda.launches == n0 + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    with torch.no_grad():
+        plain = flash_prefill_ref(q, k, v, window=window, softcap=softcap)
+        want = flash_prefill_vjp(q, k, v, plain, dout, window=window, softcap=softcap)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_grads_on_card_stay_finite_above_88(dev, dtype):
+    """``ssd_chunked`` on the card goes through ``SsdIntraChunkFn``: one K4
+    launch, and finite grads at chunk decays above 88 equal to those of
+    the plain version's chunked scan on the card."""
+    import repro_torch.kernels.ssd.ops as ssd_ops
+
+    x, dt, A, Bm, Cm = [a.to(dev) for a in _ssd_inputs(2, 256, 16, 64, 128, dtype, seed=5)]
+    Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+    w = torch.randn((2, 256, 16, 64), generator=torch.Generator().manual_seed(2)).to(dev)
+
+    def grads(intra):
+        leaves = [t.detach().clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        saved = ssd_ops.ssd_intra_chunk
+        ssd_ops.ssd_intra_chunk = intra
+        try:
+            y, s = ssd_chunked(*leaves, chunk=128)
+        finally:
+            ssd_ops.ssd_intra_chunk = saved
+        return torch.autograd.grad((y.float() * w).sum() + s.sum(), leaves)
+
+    n0 = ssd_intra_chunk_cuda.launches
+    got = grads(ssd_ops.ssd_intra_chunk)
+    assert ssd_intra_chunk_cuda.launches == n0 + 1
+    want = grads(ssd_intra_chunk_ref)
+    for g, ww in zip(got, want):
+        assert g.dtype == ww.dtype and torch.isfinite(g.float()).all()
+        if dtype == torch.float32:
+            _close_scaled(g, ww, rel=1e-3)
+        else:
+            torch.testing.assert_close(g.float(), ww.float(), **TOL[torch.bfloat16])
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad_on_card(dev):
+    q, k, v = [t.to(dev) for t in _k3_inputs(1, 64, 2, 2, 64, torch.bfloat16)]
+    n0 = flash_prefill_cuda.launches
+    with pytest.raises(ValueError, match="require grad"):
+        flash_prefill_cuda(q.requires_grad_(), k, v)
+    x, dt, A, Bm, Cm = [a.to(dev) for a in _ssd_inputs(1, 128, 8, 16, 16, torch.float32)]
+    with pytest.raises(ValueError, match="require grad"):
+        ssd_intra_chunk_cuda(x.requires_grad_(), dt, A, Bm, Cm, 128)
+    with torch.no_grad():
+        flash_prefill_cuda(q, k, v)
+    assert flash_prefill_cuda.launches == n0 + 1
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_1p3b", "jamba_v01_52b", "gemma3_12b"])
+def test_loss_and_grads_on_card_match_cpu(dev, arch):
+    """fp32 smoke model: ``loss_fn`` and every gradient on the card (K3 and
+    K4 forwards, their Functions' backwards, two launches a kernel layer
+    under remat) against the CPU's plain path; head_dim 64, the kernel's
+    smallest."""
+    cfg = replace(get_smoke_config(arch), head_dim=64)
+    cpu = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    for prm in cpu.parameters():
+        prm.data = prm.data.float()
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    grads = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        m.trainable()
+        b = {k: v.to(m.device) for k, v in batch.items()}
+        n3, n4 = flash_prefill_cuda.launches, ssd_intra_chunk_cuda.launches
+        loss, _ = m.loss_fn(b)
+        leaves = list(m.parameters())
+        grads[name] = (loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, leaves)])
+        launches = (flash_prefill_cuda.launches - n3, ssd_intra_chunk_cuda.launches - n4)
+    attn = sum(spec.kind == "attn" for spec in cfg.block_pattern()) * cfg.num_blocks
+    assert launches == (2 * attn, 2 * (cfg.num_layers - attn))
+    torch.testing.assert_close(grads["card"][0], grads["cpu"][0], rtol=1e-5, atol=1e-5)
+    for g, w in zip(grads["card"][1], grads["cpu"][1]):
+        _close_scaled(g, w, rel=1e-3)
+
+
+def test_train_steps_on_card_lower_the_loss(dev):
+    """bf16 olmo smoke on the card, one batch, 30 steps at lr 3e-3: the
+    reference's bar (the loss falls by 0.5), K3 twice a layer a step;
+    head_dim 64."""
+    from repro_torch.training import (AdamWConfig, DataConfig, SyntheticPackedDataset,
+                                      init_opt_state, make_train_step)
+
+    cfg = replace(get_smoke_config("olmo_1b"), head_dim=64)
+    m = build_model(cfg).init(torch.Generator().manual_seed(0), dev)
+    step = make_train_step(m, AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=60,
+                                          weight_decay=0.0))
+    state = init_opt_state(m.params())
+    batch = SyntheticPackedDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                              global_batch=8, seed=1)).batch_at(0)
+    n0, losses = flash_prefill_cuda.launches, []
+    for _ in range(30):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    assert flash_prefill_cuda.launches - n0 == 30 * 2 * cfg.num_layers
+    assert losses[-1] < losses[0] - 0.5, losses[::10]
+    assert state["m"]["embed"]["tok"].device.type == "cuda"
+
+
+def test_train_cli_on_card_resumes_bitwise(dev, capsys, tmp_path):
+    """``repro_torch.launch.train.main`` with no ``--device`` trains on the
+    card through K3; a run that crashed after step 2's checkpoint and
+    resumed ends with the uninterrupted run's parameters."""
+    from repro_torch.launch import train
+
+    argv = ["--steps", "4", "--d-model", "128", "--layers", "2", "--batch", "2", "--seq",
+            "64", "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]
+    n0 = flash_prefill_cuda.launches
+    whole = train.main(argv)
+    assert whole["model"].device.type == "cuda"
+    assert flash_prefill_cuda.launches - n0 == 4 * 2 * 2
+    shutil.rmtree(tmp_path / "step_000000004")
+    resumed = train.main(argv + ["--resume"])
+    assert "resumed from step 2" in capsys.readouterr().out
+    for a, b in zip(resumed["model"].parameters(), whole["model"].parameters()):
+        assert torch.equal(a, b)
