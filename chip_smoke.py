@@ -168,6 +168,15 @@ before the result line is printed:
     steps with a checkpoint every 20, then ``--resume`` from step 20
     equals the uninterrupted run bitwise (else the largest difference and
     the ops without a deterministic implementation are printed);
+36. sharded training on a world-size-1 NCCL group and a (1, 1, 1)
+    pod/data/model mesh: olmo-1b (5 steps) and mamba2-1.3b (3 steps) as
+    phases 33-34 build them, their parameters DTensors under
+    ``launch/sharding.rules_for``, ZeRO-1 moments: losses bitwise equal to
+    phases 33-34's, K3/K4 twice a layer a step on their local shards, peak
+    memory within 2%; the step ms beside the unsharded step's, a profiled
+    step, and one sharded and one unsharded step under cProfile (DTensor's
+    own host time, its dispatches and redistributes); olmo-1b's sharded
+    parameters saved and restored onto the unsharded model bitwise;
 
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
@@ -3029,6 +3038,262 @@ def phase_train_cli(card, steps=40, every=20):
     return info
 
 
+def operator_calls(step) -> dict:
+    """The aten operators one call of ``step`` issues, forward and
+    backward (the backward kept on this thread, where a dispatch mode
+    sees it), counted at the top level: all of them, and those with a
+    DTensor argument (each one a DTensor dispatch: sharding propagation,
+    then the operator on the local tensors)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = dtensor_ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.ops += 1
+            Count.dtensor_ops += any(issubclass(t, DTensor) for t in types)
+            return func(*args, **(kwargs or {}))
+
+    with torch.autograd.set_multithreading_enabled(False), Count():
+        step()
+    torch.cuda.synchronize()
+    return {"ops": Count.ops, "dtensor_ops": Count.dtensor_ops}
+
+
+def host_profile(step) -> dict:
+    """One call of ``step`` (synchronised) under cProfile: its host seconds,
+    the seconds of DTensor's own Python (``torch/distributed/tensor``, each
+    function's time less its callees'), the local redistributes with their
+    seconds (callees included), and the five costliest functions of
+    DTensor and of the whole call. DTensor's C++ dispatch path is not
+    Python: ``operator_calls`` counts what it dispatches."""
+    import cProfile
+    import pstats
+
+    pr = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr.enable()
+    step()
+    torch.cuda.synchronize()
+    pr.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(pr).stats   # (file, line, name) -> (cc, ncalls, tottime, cumtime, callers)
+    dt = {k: v for k, v in stats.items() if "torch/distributed/tensor" in k[0]}
+    redis = [v for k, v in dt.items() if k[2] == "redistribute_local_tensor"]
+
+    def top(d):
+        return [(f"{Path(k[0]).name}:{k[2]}", round(v[2], 4), v[1])
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1][2])[:5]]
+
+    return {"host_s": wall, "profiled_total_s": sum(v[2] for v in stats.values()),
+            "dtensor_self_s": sum(v[2] for v in dt.values()),
+            "redistributes": sum(v[1] for v in redis),
+            "redistribute_s": sum(v[3] for v in redis),
+            "dtensor_top": top(dt), "top": top(stats)}
+
+
+def redistribute_probe(mesh) -> dict:
+    """Host µs of one redistribute of the kind mamba2's rules issue (B and
+    C of the SSD, (8, 512, 1, 128) bf16, gathered over their state dim:
+    ``Shard(3)`` → ``Replicate()`` on the model axis), with the device
+    idle and then behind ~``backlog_ms`` of queued fp32 products: a host
+    time that follows the backlog is a wait for the device."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    x = distribute_tensor(torch.randn(8, 512, 1, 128, device="cuda", dtype=torch.bfloat16),
+                          mesh, [Shard(0), Shard(0), Shard(3)])
+    want = [Shard(0), Shard(0), Replicate()]
+    a = torch.randn(4096, 4096, device="cuda")
+    x.redistribute(mesh, want)
+    out = {}
+    for name, queued in (("idle", 0), ("busy", 8)):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(queued):
+            a @ a
+        end.record()
+        t0 = time.perf_counter()
+        x.redistribute(mesh, want)
+        out[f"{name}_host_us"] = 1e6 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if queued:
+            out["backlog_ms"] = start.elapsed_time(end)
+    return out
+
+
+def phase_sharded_train(cfg, kernel, unsharded, card, steps, B=8, S=512, elastic=False):
+    """Phase 36 for one model: ``cfg`` at full width and depth as phases
+    33-34 build it (same seed, batch and AdamW config), its parameters
+    DTensors on a (1, 1, 1) pod/data/model mesh under
+    ``rules_for(cfg, ShapeConfig("t", S, B, "train"), mesh)``, with ZeRO-1
+    moments, trained ``steps`` steps by the sharded ``make_train_step``:
+    the losses equal the unsharded run's first ``steps`` bitwise, ``kernel``
+    launches twice a layer a step on its local shards, and peak memory is
+    within 2% of the unsharded run's. Then where the host time goes: a
+    profiled sharded step, and one sharded and one unsharded step under
+    cProfile. With ``elastic``, the sharded parameters saved and restored
+    onto the unsharded model, bitwise."""
+    import shutil
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.sharding import (distribute_model, rules_for, sharding_tree,
+                                             zero_sharding_tree)
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding import shard
+    from repro_torch.training import (AdamWConfig, Checkpointer, init_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+
+    mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    rules = rules_for(cfg, ShapeConfig("t", S, B, "train"), mesh)
+    axes = model.axes()
+    distribute_model(model, sharding_tree(axes, rules, mesh))
+    zero = zero_sharding_tree(model.param_shapes(), axes, rules, mesh)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=unsharded["steps"])
+    state = init_opt_state(model.params(), zero)
+    step = make_train_step(model, opt_cfg, rules=rules, mesh=mesh)
+    batch = train_batch(cfg, B, S)
+    L = layer_counts(cfg)[0 if kernel.__name__ == "flash_prefill_cuda" else 1]
+
+    torch.cuda.synchronize()
+    peak_gb()
+    kernel.launches = 0
+    shard.redistributes = 0
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))   # syncs
+        step_ms.append(1e3 * (time.perf_counter() - t1))
+    launches, redistributes = kernel.launches, shard.redistributes
+    peak = peak_gb()
+    want = unsharded["losses"][:steps]
+    if losses != want:
+        fail(f"{cfg.name} sharded on (1, 1, 1): losses {losses} differ from the unsharded "
+             f"run's {want}")
+    if launches != 2 * L * steps:
+        fail(f"{cfg.name} sharded: {kernel.__name__} launched {launches} times in {steps} "
+             f"steps, expected 2 x {L} a step")
+    if abs(peak - unsharded["train_peak_gb"]) > 0.02 * unsharded["train_peak_gb"]:
+        fail(f"{cfg.name} sharded: peak {peak:.2f} GB against {unsharded['train_peak_gb']:.2f} "
+             f"GB unsharded, beyond 2%")
+    placements = sorted({str(tuple(x.placements)) for x in tree_leaves(state["m"])})
+    med = float(np.median(step_ms[2:]))
+    prof = profile_steps(lambda: step(state, batch), model.device, steps=2,
+                         watch=(kernel.__name__.replace("_cuda", ""),))
+    host_sharded = host_profile(lambda: step(state, batch))
+    host_sharded.update(operator_calls(lambda: step(state, batch)))
+
+    plain = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    plain_step = make_train_step(plain, opt_cfg)
+    plain_state = init_opt_state(plain.params())
+    plain_step(plain_state, batch)            # warm, as the sharded step is
+    host_plain = host_profile(lambda: plain_step(plain_state, batch))
+    host_plain.update(operator_calls(lambda: plain_step(plain_state, batch)))
+    del plain_state, plain_step
+
+    round_trip = None
+    if elastic:
+        ckpt = ROOT / "build" / "phase36_ckpt"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        try:
+            t0 = time.perf_counter()
+            Checkpointer(str(ckpt)).save(1, model.params())
+            _, tree, _ = Checkpointer(str(ckpt)).restore(1, device="cuda")
+            plain.load_state(tree)
+            equal = all(torch.equal(a.full_tensor(), b) for a, b in
+                        zip(tree_leaves(model.params()), tree_leaves(plain.params())))
+            if not equal:
+                fail(f"{cfg.name}: the sharded parameters restored onto the unsharded model "
+                     f"differ")
+            round_trip = {"bitwise": True, "seconds": time.perf_counter() - t0,
+                          "leaves": len(list(tree_leaves(tree)))}
+            del tree
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    del model, plain, state, step
+    torch.cuda.empty_cache()
+    ratio = med / unsharded["step_ms_median"]
+    info = {"steps": steps, "losses": losses, "bitwise": True, "step_ms": step_ms,
+            "step_ms_median": med, "unsharded_step_ms_median": unsharded["step_ms_median"],
+            "ratio": ratio, "launches": launches, "launches_per_step": launches / steps,
+            "unsharded_launches_per_step": unsharded["launches_per_step"],
+            "redistributes_per_step": redistributes / steps, "peak_gb": peak,
+            "unsharded_peak_gb": unsharded["train_peak_gb"], "moment_placements": placements,
+            "rules": rules, "profile": prof, "unsharded_profile": unsharded["profile"],
+            "host_sharded": host_sharded, "host_unsharded": host_plain,
+            "elastic": round_trip}
+    return info
+
+
+def phase_sharded(cfgs, kernels, train, card):
+    """Phase 36: olmo-1b (5 steps, and the elastic round trip) and
+    mamba2-1.3b (3 steps) under the sharding rules on a world-size-1 NCCL
+    group (a FileStore under build/, no network), against phases 33-34."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    store = ROOT / "build" / "phase36_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        out = {name: phase_sharded_train(cfgs[name], kernels[name], train[name], card,
+                                         steps=steps, elastic=name == "olmo-1b")
+               for name, steps in (("olmo-1b", 5), ("mamba2-1.3b", 3))}
+        probe = redistribute_probe(init_device_mesh(
+            "cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model")))
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+    def part(name, r):
+        h, hp = r["host_sharded"], r["host_unsharded"]
+        extra = r["step_ms_median"] - r["unsharded_step_ms_median"]
+        per_op = 1e3 * extra / h["dtensor_ops"] if h["dtensor_ops"] else float("nan")
+        return (f"{name} {r['steps']} steps, losses {[round(x, 4) for x in r['losses']]} bitwise "
+                f"the unsharded run's, {r['launches_per_step']:.0f} "
+                f"{'flash_prefill' if name == 'olmo-1b' else 'ssd_intra_chunk'} launches a "
+                f"step (unsharded {r['unsharded_launches_per_step']:.0f}), "
+                f"{r['redistributes_per_step']:.0f} redistributes by the rules a step; step "
+                f"{r['step_ms_median']:.1f} ms sharded vs {r['unsharded_step_ms_median']:.1f} ms "
+                f"unsharded ({r['ratio']:.2f}x, +{extra:.1f} ms); peak {r['peak_gb']:.2f} GB vs "
+                f"{r['unsharded_peak_gb']:.2f} GB; a profiled sharded step: "
+                f"{profile_line(r['profile'])}; unsharded (phase "
+                f"{33 if name == 'olmo-1b' else 34}): device busy "
+                f"{r['unsharded_profile']['device_busy_ms_per_step']:.2f} ms, "
+                f"{r['unsharded_profile']['launches_per_step']:.0f} launches; one step under "
+                f"cProfile: {h['host_s'] * 1e3:.0f} ms sharded ({h['dtensor_self_s'] * 1e3:.0f} ms "
+                f"in DTensor's own Python, {h['redistributes']} local redistributes taking "
+                f"{h['redistribute_s'] * 1e3:.0f} ms; costliest {h['top'][:4]}) vs "
+                f"{hp['host_s'] * 1e3:.0f} ms unsharded (costliest {hp['top'][:2]}); a step "
+                f"issues {h['dtensor_ops']} DTensor operators of {h['ops']} (unsharded "
+                f"{hp['ops']} operators): the extra {extra:.1f} ms is {per_op:.1f} us a DTensor "
+                f"operator"
+                + (f"; sharded parameters saved and restored onto the unsharded model bitwise "
+                   f"({r['elastic']['leaves']} leaves, {r['elastic']['seconds']:.1f} s)"
+                   if r["elastic"] else ""))
+
+    log(f"phase 36 sharded training on {card}, world size 1 (NCCL), (1, 1, 1) pod/data/model "
+        f"mesh, ZeRO-1 moments {out['olmo-1b']['moment_placements'][:2]}: "
+        + "; ".join(part(name, r) for name, r in out.items())
+        + f"; one redistribute of mamba2's kind (Shard(3) -> Replicate over the size-1 model "
+        f"axis): {probe['idle_host_us']:.0f} us on the host with the device idle, "
+        f"{probe['busy_host_us']:.0f} us behind {probe['backlog_ms']:.1f} ms of queued work")
+    out["redistribute_probe"] = probe
+    return out
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3194,6 +3459,10 @@ def main() -> int:
                                          card, 34),
     }
     train_cli = phase_train_cli(card)
+    sharded = phase_sharded({"olmo-1b": get_config("olmo_1b"),
+                             "mamba2-1.3b": get_config("mamba2_1p3b")},
+                            {"olmo-1b": flash_prefill_cuda, "mamba2-1.3b": ssd_intra_chunk_cuda},
+                            train, card)
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -3228,6 +3497,8 @@ def main() -> int:
         "olmo-1b training": {"flash_prefill": train["olmo-1b"]["launches"]},
         "mamba2-1.3b training": {"ssd_intra_chunk": train["mamba2-1.3b"]["launches"]},
         "train_cli": {"flash_prefill": train_cli["flash_prefill"]},
+        "olmo-1b sharded training": {"flash_prefill": sharded["olmo-1b"]["launches"]},
+        "mamba2-1.3b sharded training": {"ssd_intra_chunk": sharded["mamba2-1.3b"]["launches"]},
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -3251,7 +3522,7 @@ def main() -> int:
               "moe_kernels": moe_k3, "moe": moes, "jamba_kernels": j_kernels, "jamba": jamba,
               "whisper_kernels": w_kernels, "whisper": whisper, "serve_cli": cli,
               "kernel_grads": grads, "train": train, "train_cli": train_cli,
-              "kernels": kernels}
+              "sharded": sharded, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

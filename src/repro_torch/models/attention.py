@@ -41,6 +41,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..kernels.flash_prefill.ops import flash_prefill
+from ..sharding import is_dtensor, local_call, shard, shard_offset
 from .config import LayerSpec, ModelConfig
 from .layers import apply_mrope, apply_rope, dense_init, rmsnorm
 
@@ -49,6 +50,15 @@ Params = Dict[str, Any]
 NEG_INF = -1e30
 Q_CHUNK = 1024         # queries a score block of ``_attend`` holds, as the reference's
 KV_INT8_SCALE = 0.05   # the reference's fixed symmetric scale for int8 KV caches
+
+
+# logical sharding axes of each parameter leaf (repro_torch.sharding)
+ATTENTION_AXES = {
+    "wq": ("embed", "heads", "head_dim"), "wk": ("embed", "kv_heads", "head_dim"),
+    "wv": ("embed", "kv_heads", "head_dim"), "wo": ("heads", "head_dim", "embed"),
+    "bq": ("heads", "head_dim"), "bk": ("kv_heads", "head_dim"), "bv": ("kv_heads", "head_dim"),
+    "q_norm": ("head_dim",), "k_norm": ("head_dim",),
+}
 
 
 def init_attention(gen, cfg: ModelConfig, device=None) -> Params:
@@ -137,7 +147,11 @@ def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
     kf = k.float()
 
     def attend_chunk(qc, qp):
+        # when heads cannot carry the TP axis (28 ∤ 16: qwen2-vl, 8 < 16:
+        # whisper) the "attn_q" rule shards score rows over it instead
+        qc = shard(qc, ("batch", "attn_q", None, None, None))
         s = torch.einsum("bqgpd,bkgd->bgpqk", qc.float(), kf) * (1.0 / math.sqrt(Dh))
+        s = shard(s, ("batch", None, None, "attn_q", None))
         if softcap:
             s = torch.tanh(s / softcap) * softcap
         mask = torch.ones((B, 1, 1, qc.shape[1], Skv), dtype=torch.bool,
@@ -188,21 +202,65 @@ def attention_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
         return _project_out(out, p), ({"k": k, "v": v} if want_cache else None)
     k, v = _project_kv(x, p, cfg)
     q, k = _rope_qk(q, k, positions, cfg, spec)
+    q = shard(q, _Q_AXES)
+    k = shard(k, _KV_AXES)
     pos = _scalar_pos(positions)
     if caller_positions:
         out = _attend(q, k, v, pos, pos, causal=True, window=spec.sliding_window,
                       softcap=cfg.attn_logit_softcap)
         attention_full.paths["positions"] += 1
     else:
-        out = flash_prefill(q, k, v, window=spec.sliding_window,
-                            softcap=cfg.attn_logit_softcap)
+        out = _flash_prefill_local(q, k, v, window=spec.sliding_window,
+                                   softcap=cfg.attn_logit_softcap)
         attention_full.paths["flash_prefill"] += 1
     cache = (_build_cache(k, v, pos, spec.sliding_window, cache_len)
              if want_cache else None)
+    out = shard(out, _Q_AXES)
     return _project_out(out, p), cache
 
 
 attention_full.paths = {"flash_prefill": 0, "positions": 0, "memory": 0}
+
+_Q_AXES = ("batch", "seq", "heads", None)
+_KV_AXES = ("batch", "seq", "kv_heads", None)
+
+
+def _flash_prefill_local(q, k, v, window: int, softcap: float):
+    """``flash_prefill`` on each rank's local shards under a mesh (on the
+    tensors as they are without one): q by batch and ``heads``, K and V
+    by batch and ``kv_heads``, whole along the sequence (positions
+    0..S-1 on every rank).
+
+    Where a rule shards q's heads but not K's (GQA whose ``kv_heads``
+    do not divide the model axis), a rank's query heads [o, o + h) read
+    the K/V heads ``g // (H / Hkv)`` of their global index g, not the
+    first of its local view: the kernel gets K and V cut to those (one
+    head when all h share it, else one per query head), and their
+    gradients are partial sums over the ranks that cut them (``local_call``)."""
+    kv_of = None
+    if is_dtensor(q):
+        from torch.distributed.tensor import Shard
+
+        q, k = shard(q, _Q_AXES), shard(k, _KV_AXES)
+        q_heads, kv_heads = ({i for i, pl in enumerate(t.placements)
+                              if isinstance(pl, Shard) and pl.dim == 2} for t in (q, k))
+        if kv_heads and kv_heads != q_heads:
+            raise NotImplementedError(f"K/V heads sharded over mesh dims {sorted(kv_heads)}, "
+                                      f"query heads over {sorted(q_heads)}")
+        if q_heads and not kv_heads:
+            off, h = shard_offset(q, 2)
+            qpk = q.shape[2] // k.shape[2]
+            first, last = off // qpk, (off + h - 1) // qpk
+            kv_of = (slice(first, first + 1) if first == last else
+                     torch.div(torch.arange(off, off + h), qpk, rounding_mode="floor"))
+
+    def run(ql, kl, vl):
+        if kv_of is not None:
+            idx = kv_of if isinstance(kv_of, slice) else kv_of.to(kl.device)
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        return flash_prefill(ql, kl, vl, window=window, softcap=softcap)
+
+    return local_call(run, [(q, _Q_AXES), (k, _KV_AXES), (v, _KV_AXES)], out_axes=[_Q_AXES])
 
 
 def _cache_size(window: int, cache_len: int) -> int:
@@ -284,7 +342,9 @@ def attention_decode(x, p, cfg: ModelConfig, spec: LayerSpec, cache: Params,
     cv[bidx, slot] = _kv_store(v_new[:, 0], cv.dtype)
     cpos[bidx, slot] = pos_vec.to(cpos.dtype)
 
-    out = _attend(q, _kv_load(ck), _kv_load(cv), pos2, cpos, causal=True,
+    ck_s = shard(_kv_load(ck), ("batch", "kv_seq", "kv_heads", None))
+    cv_s = shard(_kv_load(cv), ("batch", "kv_seq", "kv_heads", None))
+    out = _attend(q, ck_s, cv_s, pos2, cpos, causal=True,
                   window=spec.sliding_window, softcap=cfg.attn_logit_softcap,
                   kv_valid=cpos >= 0)
     return _project_out(out, p), cache

@@ -167,3 +167,20 @@ class ModelConfig:
             total += self.encoder_layers * (4 * d * self.num_heads * self.head_dim
                                             + n * d * self.d_ff)
         return total
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One launch shape (assigned per-arch input shapes)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -18,6 +18,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
+from ..sharding import is_dtensor, local_call, shard, shard_offset
+
 Params = Dict[str, Any]
 
 
@@ -27,7 +29,10 @@ Params = Dict[str, Any]
 def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.bfloat16, device=None) -> torch.Tensor:
     """Normal × 1/√fan_in, drawn in fp32 and cast (the reference's rule;
-    the values differ because the generators differ)."""
+    the values differ because the generators differ). On the ``meta``
+    device nothing is drawn: the shape alone (``Model.param_shapes``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     std = 1.0 / math.sqrt(shape[in_axis])
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device) * std
@@ -36,6 +41,13 @@ def dense_init(gen: torch.Generator, shape, in_axis: int = 0,
 
 NORM_KINDS = ("rmsnorm", "rmsnorm_gemma", "layernorm_np", "layernorm")
 MLP_KINDS = ("swiglu", "gelu")
+
+# logical sharding axes of each parameter leaf, by its key (repro_torch.sharding),
+# the reference's ``init_*`` axes trees
+NORM_AXES = {"scale": ("embed",), "bias": ("embed",)}
+MLP_AXES = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed"),
+            "wi": ("embed", "mlp"), "bi": ("mlp",), "bo": ("embed",)}
+EMBED_AXES = {"tok": ("vocab", "embed"), "unembed": ("embed", "vocab")}
 
 
 def init_norm(d: int, kind: str, device=None) -> Params:
@@ -167,8 +179,11 @@ def mlp_apply(x: torch.Tensor, p, kind: str) -> torch.Tensor:
         raise NotImplementedError(f"mlp kind {kind!r} is not ported")
     if kind == "swiglu":
         h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+        h = shard(h, ("batch", "seq", "mlp"))
         return h @ p["wo"]
-    return F.gelu(x @ p["wi"] + p["bi"], approximate="tanh") @ p["wo"] + p["bo"]
+    h = F.gelu(x @ p["wi"] + p["bi"], approximate="tanh")
+    h = shard(h, ("batch", "seq", "mlp"))
+    return h @ p["wo"] + p["bo"]
 
 
 def init_mlp(gen, d: int, d_ff: int, kind: str, device=None) -> Params:
@@ -200,7 +215,25 @@ def init_embed(gen, vocab: int, d: int, tie: bool, device=None) -> Params:
 
 
 def embed_tokens(tokens: torch.Tensor, p, scale: bool, d: int):
-    x = p["tok"][tokens.long()]
+    """The table's rows of ``tokens``. On a DTensor table each rank looks
+    up the tokens of its own vocab rows, zeros for the others, and the
+    rows are a partial sum over the ranks that shard the vocab (a
+    vocab-parallel lookup; no operator of DTensor's indexes the table)."""
+    tok = p["tok"]
+    if is_dtensor(tok):
+        lo, n = shard_offset(shard(tok, EMBED_AXES["tok"]), 0)
+
+        def lookup(t, w):
+            idx = t.long() - lo
+            if n == tok.shape[0]:
+                return w[idx]
+            ok = (idx >= 0) & (idx < n)
+            return torch.where(ok[..., None], w[idx.clamp(0, n - 1)], 0)
+
+        x = local_call(lookup, [(tokens, ("batch", "seq")), (tok, EMBED_AXES["tok"])],
+                       out_axes=[("batch", "seq", None)], partial_over=("vocab",))
+    else:
+        x = tok[tokens.long()]
     if scale:
         x = x * torch.tensor(math.sqrt(d), dtype=x.dtype, device=x.device)
     return x
@@ -208,4 +241,4 @@ def embed_tokens(tokens: torch.Tensor, p, scale: bool, d: int):
 
 def unembed(x: torch.Tensor, p) -> torch.Tensor:
     w = p["unembed"] if "unembed" in p else p["tok"].T
-    return x @ w
+    return shard(x @ w, ("batch", "seq", "vocab"))

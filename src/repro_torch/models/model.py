@@ -29,10 +29,11 @@ from torch import nn
 from ..convert import params_from_numpy
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
-from .layers import (MLP_KINDS, NORM_KINDS, apply_norm, embed_tokens, init_embed, init_norm,
-                     unembed)
+from ..sharding import shard
+from .layers import (EMBED_AXES, MLP_KINDS, NORM_AXES, NORM_KINDS, apply_norm, embed_tokens,
+                     init_embed, init_norm, unembed)
 from .transformer import (apply_stack_decode, apply_stack_full, empty_stack_cache, encode,
-                          init_encoder, init_stack)
+                          init_encoder, init_stack, layer_axes, stack_layer_axes)
 
 Params = Dict[str, Any]
 
@@ -92,8 +93,10 @@ class Model(nn.ModuleDict):
         """Random parameters from ``generator`` on ``device`` (``None`` →
         cuda). Same key paths, shapes and dtypes as the reference's
         ``Model.init``; the values differ because the generators do."""
+        return self.install(self._param_tree(generator, resolve_device(device)))
+
+    def _param_tree(self, generator: torch.Generator, dev: torch.device) -> Params:
         cfg = self.cfg
-        dev = resolve_device(device)
         tree = {
             "embed": init_embed(generator, cfg.vocab_size, cfg.d_model,
                                 cfg.tie_embeddings, dev),
@@ -102,14 +105,43 @@ class Model(nn.ModuleDict):
         }
         if cfg.encoder_layers:
             tree["encoder"] = init_encoder(generator, cfg, dev)
-        return self._install(tree)
+        return tree
+
+    def param_shapes(self) -> Params:
+        """The parameter tree on the ``meta`` device: every leaf's shape
+        and dtype, nothing allocated (the reference's ``param_shapes``)."""
+        return self._param_tree(torch.Generator(), torch.device("meta"))
+
+    def axes(self) -> Params:
+        """The logical-axes tree matching ``params()`` leaf for leaf (the
+        reference's ``Model.axes``): each leaf's axes by its key, over the
+        tree that ``param_shapes`` builds; stacked leaves lead with
+        ``"layer"``."""
+        shapes = self.param_shapes()
+
+        def table(tree, axes):
+            return {k: axes[k] for k in tree}
+
+        ax: Params = {
+            "embed": table(shapes["embed"], EMBED_AXES),
+            "stack": {pos: stack_layer_axes(layer_axes(t)) for pos, t in shapes["stack"].items()},
+            "norm_f": table(shapes["norm_f"], NORM_AXES),
+        }
+        if "encoder" in shapes:
+            enc = shapes["encoder"]
+            ax["encoder"] = {"blocks": stack_layer_axes(layer_axes(enc["blocks"])),
+                             "norm_out": table(enc["norm_out"], NORM_AXES)}
+        return ax
 
     def load_params(self, tree: Mapping[str, Any], device: DeviceLike = None
                     ) -> "Model":
         """Install the reference's parameters, given as numpy arrays."""
-        return self._install(params_from_numpy(tree, resolve_device(device)))
+        return self.install(params_from_numpy(tree, resolve_device(device)))
 
-    def _install(self, tree: Mapping[str, Any]) -> "Model":
+    def install(self, tree: Mapping[str, Any]) -> "Model":
+        """Make the tensors of ``tree`` (the parameter tree's key paths)
+        the model's parameters, without copies (DTensors too:
+        ``launch/sharding.distribute_model``)."""
         self.clear()
         for k, v in tree.items():
             self[k] = _to_module(v)
@@ -182,18 +214,24 @@ class Model(nn.ModuleDict):
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
         x = embed_tokens(tokens, self["embed"], cfg.embed_scale, cfg.d_model)
+        x = shard(x, ("batch", "seq", "embed"))
         positions, given = self._batch_positions(batch, B, S)
         x, aux, _ = apply_stack_full(x, self["stack"], cfg, positions,
                                      caller_positions=given,
                                      memory=self._memory(batch.get("frames")),
                                      remat=remat)
         x = apply_norm(x, self["norm_f"], cfg.norm_kind, cfg.norm_eps)
-        logits = unembed(x, self["embed"]).float()
-        mask = (labels >= 0).float()
+        # under sharding rules the fp32 logits are gathered over the vocab
+        # before the logsumexp and the target's pick, and the (B, S) terms
+        # over the batch before the sums, which then add in the unsharded
+        # order on every rank (all identities without rules)
+        logits = shard(unembed(x, self["embed"]).float(), ("batch", "seq", None))
+        mask = shard((labels >= 0).float(), (None, None))
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
         tokens_n = mask.sum()
-        loss = ((lse - tgt) * mask).sum() / torch.clamp(tokens_n, min=1.0)
+        nll = shard(lse - tgt, (None, None)) * mask
+        loss = nll.sum() / torch.clamp(tokens_n, min=1.0)
         if cfg.num_experts:
             loss = loss + cfg.router_aux_coef * aux
         return loss, {"loss": loss, "tokens": tokens_n, "aux": aux}
@@ -231,6 +269,7 @@ class Model(nn.ModuleDict):
         B, S = tokens.shape
         cache_len = cache_len or S
         x = embed_tokens(tokens, self["embed"], cfg.embed_scale, cfg.d_model)
+        x = shard(x, ("batch", "seq", "embed"))
         given = positions is not None
         if not given:
             positions = torch.arange(S, dtype=torch.int32,

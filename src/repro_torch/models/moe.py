@@ -17,8 +17,10 @@ the top-k weights renormalised, ties broken towards the lower expert id
 keep their place under capacity), the weights cast to the activation
 dtype before the product, and each token's k outputs added in expert
 order in that dtype (the order of the reference's scatter-add).
-The reference shards the group axis over the data-parallel mesh; the
-port has no mesh yet and runs it unsharded.
+Under sharding rules (``repro_torch.sharding``) the capacity path's
+token groups take the data-parallel placement when their count divides
+it (``_group_axis``), and the (E, C, ·) expert buffers the ``expert``
+axis, as the reference lays them out.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..sharding import current_mesh, current_rules, local_call, mesh_axis_sizes, shard
 from .config import ModelConfig
 from .layers import dense_init
 
@@ -46,6 +49,11 @@ def dropless_moe(enabled: bool = True):
         yield
     finally:
         _dropless.reset(tok)
+
+
+# logical sharding axes of each parameter leaf (repro_torch.sharding)
+MOE_AXES = {"router": ("embed", None), "w_gate": ("expert", "embed", "mlp"),
+            "w_up": ("expert", "embed", "mlp"), "w_down": ("expert", "mlp", "embed")}
 
 
 def init_moe(gen, cfg: ModelConfig, device=None) -> Params:
@@ -112,36 +120,81 @@ def _combine(contrib: torch.Tensor, token_of_slot: torch.Tensor, k: int) -> torc
     return y
 
 
-def _dispatch_groups(xg: torch.Tensor, p, cfg: ModelConfig, capacity: int):
-    """GShard-style dispatch over (ng, G, D) token groups. Returns
-    (y (ng, G, D), aux)."""
+def _to_slots(xg: torch.Tensor, router: torch.Tensor, k: int, E: int, C: int):
+    """Routing and the expert buffer of (ng, G, D) token groups, each
+    group on its own: (buf (ng, E, C, D), the stable expert order of the
+    (token, slot) pairs (ng, G·k), each sorted pair's buffer row (E·C
+    when dropped), its routing weight (fp32), and each group's
+    Σ_e f_e · P_e (ng,) for the aux loss)."""
     ng, G, D = xg.shape
-    E, k, C = cfg.num_experts, cfg.top_k, capacity
-
-    probs, weights, idx = route(xg, p["router"], k)           # (ng, G, E), (ng, G, k)
+    probs, weights, idx = route(xg, router, k)                # (ng, G, E), (ng, G, k)
     order, dest, keep, counts = capacity_slots(idx.reshape(ng, G * k), E, C)
-    token_of_slot = order // k                                # (ng, G·k)
     rows = lambda i: i[..., None].expand(-1, -1, D)
 
-    xs = torch.gather(xg, 1, rows(token_of_slot))
+    xs = torch.gather(xg, 1, rows(order // k))
     buf = torch.zeros((ng, E * C + 1, D), dtype=xg.dtype, device=xg.device)
     buf.scatter_(1, rows(dest), torch.where(keep[..., None], xs, 0))
-    buf = buf[:, :-1].reshape(ng, E, C, D)
+    w_slot = torch.gather(weights.reshape(ng, G * k), 1, order)
+    # load-balancing aux loss (Switch-style): E · Σ_e f_e · P_e, its Σ here
+    f = counts.float() / (G * k)
+    return (buf[:, :-1].reshape(ng, E, C, D), order, dest, w_slot,
+            torch.sum(f * probs.mean(1), dim=-1))
 
-    h = swiglu_gate(torch.einsum("gecd,edf->gecf", buf, p["w_gate"]),
-                    torch.einsum("gecd,edf->gecf", buf, p["w_up"]))
-    out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
 
+def _from_slots(out: torch.Tensor, order: torch.Tensor, dest: torch.Tensor,
+                w_slot: torch.Tensor, k: int) -> torch.Tensor:
+    """The experts' (ng, E, C, D) outputs back to each group's tokens,
+    weighted and summed (``_to_slots``' order, rows and weights)."""
+    ng, E, C, D = out.shape
     flat_out = torch.cat([out.reshape(ng, E * C, D),
                           torch.zeros((ng, 1, D), dtype=out.dtype, device=out.device)], 1)
-    y_slot = torch.gather(flat_out, 1, rows(dest))
-    w_slot = torch.gather(weights.reshape(ng, G * k), 1, order).to(y_slot.dtype)
-    y = _combine(y_slot * w_slot[..., None], token_of_slot, k)
+    y_slot = torch.gather(flat_out, 1, dest[..., None].expand(-1, -1, D))
+    return _combine(y_slot * w_slot.to(y_slot.dtype)[..., None], order // k, k)
 
-    # load-balancing aux loss (Switch-style): E · Σ_e f_e · P_e
-    f = counts.float() / (G * k)
-    aux = E * torch.mean(torch.sum(f * probs.mean(1), dim=-1))
+
+def _dispatch_groups(xg: torch.Tensor, p, cfg: ModelConfig, capacity: int):
+    """GShard-style dispatch over (ng, G, D) token groups. Returns
+    (y (ng, G, D), aux). Under sharding rules the routing and the
+    combine run on each rank's local groups (``local_call``), and the
+    expert products on DTensors between them."""
+    ng, G, D = xg.shape
+    E, k, C = cfg.num_experts, cfg.top_k, capacity
+    gax = _group_axis(ng)  # None when ng doesn't divide the DP extent
+    g_ax, x_ax = (gax, None), (gax, None, "embed")
+
+    xg = shard(xg, x_ax)
+    buf, order, dest, w_slot, aux_g = local_call(
+        lambda x, r: _to_slots(x, r, k, E, C), [(xg, x_ax), (p["router"], ("embed", None))],
+        out_axes=[(gax, None, None, "embed"), g_ax, g_ax, g_ax, (gax,)])
+
+    # tokens→experts: group-sharded → expert-sharded
+    buf = shard(buf, (None, "expert", None, "embed"))
+    h = swiglu_gate(torch.einsum("gecd,edf->gecf", buf, p["w_gate"]),
+                    torch.einsum("gecd,edf->gecf", buf, p["w_up"]))
+    h = shard(h, (None, "expert", None, "mlp"))
+    out = torch.einsum("gecf,efd->gecd", h, p["w_down"])
+    # experts→tokens: back to group-sharded
+    out = shard(out, (gax, None, None, "embed"))
+
+    y = local_call(lambda o, oi, d, w: _from_slots(o, oi, d, w, k),
+                   [(out, (gax, None, None, "embed")), (order, g_ax), (dest, g_ax),
+                    (w_slot, g_ax)], out_axes=[x_ax])
+    aux = E * torch.mean(shard(aux_g, (None,)))
     return y, aux
+
+
+def _group_axis(ng: int):
+    """The token-group dim carries the DP sharding iff it divides it."""
+    rules, mesh = current_rules(), current_mesh()
+    if not rules or mesh is None:
+        return None
+    r = rules.get("batch")
+    axes = (r,) if isinstance(r, str) else tuple(r or ())
+    sizes = mesh_axis_sizes(mesh)
+    dp = 1
+    for a in axes:
+        dp *= sizes.get(a, 1)
+    return "batch" if dp > 1 and ng % dp == 0 else None
 
 
 def _dispatch_dropless(x: torch.Tensor, p, cfg: ModelConfig):

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd.ops import ssd_chunked
+from ..sharding import local_call, shard
 from .config import ModelConfig
 from .layers import dense_init, rmsnorm
 
@@ -37,6 +38,19 @@ NGROUPS = 1  # B/C shared across heads (Mamba-2 default ngroups=1)
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+# logical sharding axes of each parameter leaf (repro_torch.sharding); the
+# projections are separate so that each stream shards on its own axis
+SSM_AXES = {
+    "in_z": ("embed", "ssm_inner"), "in_x": ("embed", "ssm_inner"),
+    "in_B": ("embed", "ssm_state"), "in_C": ("embed", "ssm_state"),
+    "in_dt": ("embed", "ssm_heads"),
+    "conv_x": (None, "ssm_inner"), "conv_B": (None, "ssm_state"), "conv_C": (None, "ssm_state"),
+    "conv_bx": ("ssm_inner",), "conv_bB": ("ssm_state",), "conv_bC": ("ssm_state",),
+    "A_log": ("ssm_heads",), "D": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+    "norm_scale": ("ssm_inner",), "out_proj": ("ssm_inner", "embed"),
+}
+
+
 def init_ssm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     """The reference's key paths, shapes and dtypes; values from ``gen``."""
     d = cfg.d_model
@@ -98,6 +112,21 @@ def _conv_full(xc, w, b):
     return out + b
 
 
+# the SSD scan runs on each rank's local heads (``local_call``): x, dt and A
+# by ``ssm_heads``, while B and C, shared by every head, stay whole
+_HEADS_AXES = ("batch", "seq", "ssm_heads", None)
+_SHARED_AXES = ("batch", "seq", None, None)
+
+
+def _conv_silu(xc, w, b, axis: str):
+    """silu of the causal depthwise conv of the (B, S, C) stream ``xc``,
+    whose channels lie on the logical ``axis``; on each rank's local
+    channels and batch under a mesh (each channel is its own conv)."""
+    return local_call(lambda t, wt, bt: F.silu(_conv_full(t, wt, bt)),
+                      [(xc, ("batch", "seq", axis)), (w, (None, axis)), (b, (axis,))],
+                      out_axes=[("batch", "seq", axis)])
+
+
 def ssm_forward(x, p: Params, cfg: ModelConfig, want_state: bool = False):
     """Full-sequence Mamba-2 block. x: (B, S, D). Returns (out, state)."""
     B, S, _ = x.shape
@@ -109,17 +138,21 @@ def ssm_forward(x, p: Params, cfg: ModelConfig, want_state: bool = False):
     Cr = x @ p["in_C"]
     dt_raw = x @ p["in_dt"]
 
-    xin = F.silu(_conv_full(xr, p["conv_x"], p["conv_bx"]))
-    Bm = F.silu(_conv_full(Br, p["conv_B"], p["conv_bB"]))
-    Cm = F.silu(_conv_full(Cr, p["conv_C"], p["conv_bC"]))
+    xin = _conv_silu(xr, p["conv_x"], p["conv_bx"], "ssm_inner")
+    Bm = _conv_silu(Br, p["conv_B"], p["conv_bB"], "ssm_state")
+    Cm = _conv_silu(Cr, p["conv_C"], p["conv_bC"], "ssm_state")
 
-    xin = xin.reshape(B, S, H, P)
+    xin = shard(xin.reshape(B, S, H, P), ("batch", "seq", "ssm_heads", None))
     Bm = Bm.reshape(B, S, NGROUPS, N)
     Cm = Cm.reshape(B, S, NGROUPS, N)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
 
-    y, s_final = ssd_chunked(xin, dt, A, Bm, Cm, cfg.ssm_chunk)
+    y, s_final = local_call(
+        lambda *t: ssd_chunked(*t, cfg.ssm_chunk),
+        [(xin, _HEADS_AXES), (dt, _HEADS_AXES[:3]), (A, ("ssm_heads",)),
+         (Bm, _SHARED_AXES), (Cm, _SHARED_AXES)],
+        out_axes=[_HEADS_AXES, ("batch", "ssm_heads", None, None)])
     y = y + xin * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(B, S, cfg.d_inner)
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_scale"], cfg.norm_eps)

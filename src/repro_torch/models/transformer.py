@@ -27,6 +27,7 @@ stacked under ``encoder.blocks`` and a final ``encoder.norm_out``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Dict, List, Union
 
@@ -34,11 +35,13 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .attention import attention_decode, attention_full, empty_cache, init_attention
+from ..sharding import rules_context, shard
+from .attention import (ATTENTION_AXES, attention_decode, attention_full, empty_cache,
+                        init_attention)
 from .config import LayerSpec, ModelConfig
-from .layers import apply_norm, init_mlp, init_norm, mlp_apply
-from .moe import init_moe, moe_apply
-from .ssm import empty_ssm_state, init_ssm, ssm_decode_step, ssm_forward
+from .layers import MLP_AXES, NORM_AXES, apply_norm, init_mlp, init_norm, mlp_apply
+from .moe import MOE_AXES, init_moe, moe_apply
+from .ssm import SSM_AXES, empty_ssm_state, init_ssm, ssm_decode_step, ssm_forward
 
 Params = Dict[str, Any]
 
@@ -62,6 +65,41 @@ def tree_unbind(tree, n: int) -> List[Params]:
         for b in range(n):
             out[b][k] = parts[b]
     return out
+
+
+# ---------------------------------------------------------------------------
+# axes trees (leaves are tuples of logical axis names, repro_torch.sharding)
+# ---------------------------------------------------------------------------
+def is_axes_leaf(x) -> bool:
+    return x is None or (
+        isinstance(x, tuple)
+        and all(e is None or isinstance(e, str) for e in x)
+    )
+
+
+def axes_map(fn, tree, *rest):
+    """``fn(axes, *leaves)`` over the axes leaves of a nested-dict axes
+    tree and the matching leaves of trees of its structure."""
+    if is_axes_leaf(tree):
+        return fn(tree, *rest)
+    return {k: axes_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def stack_layer_axes(ax_tree):
+    """Prepend the 'layer' axis to every leaf (stacked over super-blocks)."""
+    return axes_map(lambda a: ("layer",) + tuple(a or ()), ax_tree)
+
+
+# the axes table of each subtree of a layer's parameters, by its key
+_LAYER_AXES = {"norm_in": NORM_AXES, "norm_cross": NORM_AXES, "norm_mlp": NORM_AXES,
+               "attn": ATTENTION_AXES, "cross": ATTENTION_AXES, "ssm": SSM_AXES,
+               "moe": MOE_AXES, "mlp": MLP_AXES}
+
+
+def layer_axes(layer: Params) -> Params:
+    """The axes tree of one layer's parameter tree (built by
+    ``init_layer``; stacked or not), leaf for leaf, unstacked."""
+    return {k: {name: _LAYER_AXES[k][name] for name in sub} for k, sub in layer.items()}
 
 
 def _check_ported(spec: LayerSpec) -> None:
@@ -130,6 +168,7 @@ def apply_layer_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
                                            want_cache=want_cache, memory=memory)
         x = x + a
     x, aux = _ffn_residual(x, p, cfg)
+    x = shard(x, ("batch", "seq", "embed"))
     return x, aux, (cache if want_cache else {})
 
 
@@ -197,19 +236,43 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _with_rules(contexts):
+    """``contexts`` (a checkpoint ``context_fn``) whose recompute context
+    also installs the sharding rules of the forward: the recompute runs in
+    the autograd engine's thread (``sharding.rules_context``)."""
+    def context_fn():
+        fwd, rec = contexts()
+        stack = contextlib.ExitStack()
+        rules = rules_context()
+
+        @contextlib.contextmanager
+        def recompute():
+            with stack:
+                stack.enter_context(rules)
+                stack.enter_context(rec)
+                yield
+        return fwd, recompute()
+    return context_fn
+
+
+def _no_contexts():
+    return contextlib.nullcontext(), contextlib.nullcontext()
+
+
 def _remat(fn, remat: Union[bool, str]):
     """``fn`` recomputed in the backward: the whole of it for ``True`` or
     ``"full"``, all but its matmul outputs for ``"dots"``; as it is for
-    ``False``."""
+    ``False``. The recompute runs under the forward's sharding rules."""
     if not remat:
         return fn
     if remat is True or remat == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    if remat == "dots":
-        return functools.partial(
-            checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
-    raise ValueError(f"remat must be True, False, 'full' or 'dots', got {remat!r}")
+        contexts = _no_contexts
+    elif remat == "dots":
+        contexts = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    else:
+        raise ValueError(f"remat must be True, False, 'full' or 'dots', got {remat!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False,
+                             context_fn=_with_rules(contexts))
 
 
 def apply_stack_full(x, stack, cfg: ModelConfig, positions,
@@ -278,6 +341,34 @@ def apply_stack_decode(x, stack, cfg: ModelConfig, cache: Params, pos):
                 x, tree_index(stack[f"pos{i}"], b), cfg, spec,
                 tree_index(cache[f"pos{i}"], b), pos)
     return x, cache
+
+
+def stack_cache_axes(cfg: ModelConfig) -> Params:
+    """Logical axes tree matching empty_stack_cache's structure."""
+    pattern = cfg.block_pattern()
+    out = {}
+    for i, spec in enumerate(pattern):
+        c: Params = {}
+        if spec.kind == "attn":
+            c["self"] = {
+                "k": ("layer", "batch", "kv_seq", "kv_heads", None),
+                "v": ("layer", "batch", "kv_seq", "kv_heads", None),
+                "pos": ("layer", "batch", "kv_seq"),
+            }
+            if spec.cross_attn:
+                c["cross"] = {
+                    "k": ("layer", "batch", None, "kv_heads", None),
+                    "v": ("layer", "batch", None, "kv_heads", None),
+                }
+        else:
+            c["ssm"] = {
+                "conv_x": ("layer", "batch", None, "ssm_inner"),
+                "conv_B": ("layer", "batch", None, "ssm_state"),
+                "conv_C": ("layer", "batch", None, "ssm_state"),
+                "ssd": ("layer", "batch", "ssm_heads", None, None),
+            }
+        out[f"pos{i}"] = c
+    return out
 
 
 def empty_stack_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int = 0,

@@ -21,6 +21,10 @@ them, and rebuilt with ``Tensor.view``: no ``ml_dtypes`` needed.
     returns and writes in a daemon thread; one write in flight at a time.
   * retention — ``keep_last`` pruning, never deleting the newest step.
   * resume    — data-pipeline state rides in the manifest's extras.
+  * elastic   — a DTensor leaf is saved as its full value (``full_tensor``,
+    a collective every rank joins; rank 0 writes), so the files are the
+    same whatever mesh wrote them, and ``restore(shardings=)`` lays each
+    leaf out on a new mesh.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike
+from ..sharding import is_dtensor
 from .optimizer import tree_map
 
 Params = Any
@@ -66,8 +71,17 @@ def _from_storable(arr: np.ndarray, name: str) -> torch.Tensor:
 
 
 def _snapshot(x) -> torch.Tensor:
-    """A host copy of a leaf that later in-place updates do not reach."""
+    """A host copy of a leaf that later in-place updates do not reach; a
+    DTensor's full value."""
+    if is_dtensor(x):
+        x = x.detach().full_tensor()
     return torch.as_tensor(x).detach().to("cpu", copy=True)
+
+
+def _distributed(leaves) -> bool:
+    import torch.distributed as dist
+
+    return any(is_dtensor(x) for x in leaves) and dist.is_initialized()
 
 
 def _flatten(tree, leaves: List[Any]):
@@ -100,12 +114,23 @@ class Checkpointer:
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Params,
              extras: Optional[Dict[str, Any]] = None) -> str:
-        return self._write(step, self._host(tree), extras or {})
+        """Every rank calls it for a tree of DTensors: each joins the
+        gathers, rank 0 writes, and all return once the step is committed."""
+        host, shared = self._host(tree)
+        path = self._write(step, host, extras or {}) if self._writer(shared) else \
+            os.path.join(self.dir, f"step_{step:09d}")
+        if shared:
+            import torch.distributed as dist
+
+            dist.barrier()
+        return path
 
     def save_async(self, step: int, tree: Params,
                    extras: Optional[Dict[str, Any]] = None) -> None:
         self.wait()  # one in flight at a time
-        host = self._host(tree)  # snapshot before returning
+        host, shared = self._host(tree)  # snapshot before returning
+        if not self._writer(shared):
+            return
 
         def run():
             self._write(step, host, extras or {})
@@ -120,9 +145,16 @@ class Checkpointer:
 
     @staticmethod
     def _host(tree):
+        """((tags, host leaves), whether the leaves lie on a mesh)."""
         leaves: List[Any] = []
         tags = _flatten(tree, leaves)
-        return tags, [_snapshot(x) for x in leaves]
+        return (tags, [_snapshot(x) for x in leaves]), _distributed(leaves)
+
+    @staticmethod
+    def _writer(shared: bool) -> bool:
+        import torch.distributed as dist
+
+        return not shared or dist.get_rank() == 0
 
     def _write(self, step: int, host, extras) -> str:
         tags, leaves = host
@@ -175,10 +207,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, device: DeviceLike = None
-                ) -> Tuple[int, Params, Dict[str, Any]]:
+    def restore(self, step: Optional[int] = None, device: DeviceLike = None,
+                shardings: Params = None) -> Tuple[int, Params, Dict[str, Any]]:
         """(step, tree of tensors, extras) of ``step`` (default: the
-        latest), the leaves on ``device`` (default: the host)."""
+        latest), the leaves on ``device`` (default: the host). With
+        ``shardings`` (a tree of ``MeshSharding``s over the checkpoint's
+        tree, on any mesh) each leaf becomes a DTensor laid out by its
+        sharding, on the mesh's device: an elastic restore."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -194,4 +229,8 @@ class Checkpointer:
         tree = _unflatten(manifest["treedef"], load_leaf)
         if device is not None:
             tree = tree_map(lambda a: a.to(device), tree)
+        if shardings is not None:
+            from ..launch.sharding import distribute
+
+            tree = distribute(tree, shardings)
         return step, tree, manifest.get("extras", {})

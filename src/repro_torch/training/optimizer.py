@@ -16,6 +16,14 @@ Weight decay follows the reference's rule: a leaf with ``ndim >= 2`` is
 decayed. The stacked norm scales are (L, d), so they are decayed too,
 against the reference's comment (ROADMAP Queue 3 entry 14); the rule is
 kept so that both packages take the same step.
+
+Sharded (``repro_torch.sharding``): the parameters, grads and moments
+may be DTensors. m and v may be laid out by ZeRO-1 shardings
+(``launch/sharding.zero_sharding_tree``): each rank then updates its
+slice of a parameter in the moments' layout and the slices are gathered
+back into the parameter's. The gradient norm is a full reduction over
+every shard; the arithmetic of a leaf's update is the unsharded one, on
+the local shards.
 """
 
 from __future__ import annotations
@@ -25,6 +33,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+
+from ..sharding import is_dtensor
 
 Params = Any
 
@@ -77,18 +87,34 @@ def lr_at(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def init_opt_state(params: Params) -> Dict[str, Any]:
+def init_opt_state(params: Params, shardings: Params = None) -> Dict[str, Any]:
     """fp32 zeros for m and v beside every leaf, and step 0 (int32), on the
-    parameters' device."""
-    zeros32 = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    parameters' device. A DTensor leaf's moments are DTensors laid out as
+    the leaf, or by ``shardings`` (a tree of ``MeshSharding``s, ZeRO-1's
+    from ``zero_sharding_tree``) when given."""
+    def zeros32(p, sh=None):
+        if sh is not None:
+            from torch.distributed.tensor import zeros
+
+            return zeros(p.shape, dtype=torch.float32, device_mesh=sh.mesh,
+                         placements=sh.placements(p.dim()))
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    rest = (shardings,) if shardings is not None else ()
     dev = next(tree_leaves(params)).device
-    return {"m": tree_map(zeros32, params), "v": tree_map(zeros32, params),
+    return {"m": tree_map(zeros32, params, *rest), "v": tree_map(zeros32, params, *rest),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 def global_norm(tree) -> torch.Tensor:
-    """√(Σ x²) over every leaf, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+    """√(Σ x²) over every leaf, in fp32; over DTensor leaves the sum runs
+    over every shard and the result is a plain replicated tensor."""
+    total = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    if is_dtensor(total):
+        total = total.full_tensor()
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -118,6 +144,19 @@ def adamw_update(cfg: AdamWConfig, params: Params, grads: Params,
             delta = delta + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * delta)
 
-    tree_map(upd, params, grads, state["m"], state["v"])
+    def upd_sharded(p, g, m, v):
+        """``upd`` on the local shards in the moments' layout; a slice of
+        a ZeRO-1 layout is gathered back into the parameter's."""
+        if not is_dtensor(p):
+            return upd(p, g, m, v)
+        mesh, layout = m.device_mesh, tuple(m.placements)
+        gl = g.redistribute(mesh, layout).to_local()
+        if layout == tuple(p.placements):
+            return upd(p.to_local(), gl, m.to_local(), v.to_local())
+        pz = p.redistribute(mesh, layout)
+        upd(pz.to_local(), gl, m.to_local(), v.to_local())
+        p.to_local().copy_(pz.redistribute(mesh, p.placements).to_local())
+
+    tree_map(upd_sharded, params, grads, state["m"], state["v"])
     state["step"] = step + 1
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -7,8 +7,15 @@ it was made for in place: ``train_step(opt_state, batch) → (opt_state,
 metrics)``. The gradient is ``torch.autograd.grad`` of ``Model.loss_fn``
 over every parameter (zeros for one the batch does not reach, as
 ``jax.grad`` gives); on the card it runs through the kernels'
-``autograd.Function``s. The port has no mesh yet: one device, no
-gradient all-reduce.
+``autograd.Function``s.
+
+Sharded: given ``rules`` and their ``mesh``, the step runs under
+``use_rules(rules, mesh)`` on a model whose parameters are DTensors
+(``launch/sharding.distribute_model``). The batch goes onto the mesh by
+``input_specs``' shardings, every operation runs on DTensors (a plain
+tensor the model makes, such as its positions, counts as replicated),
+and each gradient is laid out as its parameter (the data-parallel
+all-reduce) before AdamW. Without rules nothing of this runs.
 """
 
 from __future__ import annotations
@@ -17,7 +24,9 @@ from typing import Any, Callable, Dict, Mapping
 
 import torch
 
+from ..models.config import ShapeConfig
 from ..models.model import Model
+from ..sharding import is_dtensor, use_rules
 from .optimizer import AdamWConfig, adamw_update, tree_leaves, tree_map
 
 Batch = Dict[str, Any]
@@ -36,14 +45,31 @@ def _split(key: str, x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
 
 
+def _replicated(x):
+    """A plain tensor as it is; a DTensor as its full value."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _on_mesh(batch: Batch, model: Model, rules, mesh) -> Batch:
+    """The batch's tensors as DTensors laid out by ``input_specs`` (every
+    rank holds the whole batch and keeps its shard)."""
+    from ..launch.sharding import distribute, input_specs
+
+    B, S = batch["tokens"].shape
+    _, shardings = input_specs(model.cfg, ShapeConfig("step", S, B, "train"), rules, mesh)
+    return {k: distribute(v, shardings[k]) if k in shardings else v for k, v in batch.items()}
+
+
 def make_train_step(model: Model, opt_cfg: AdamWConfig, grad_accum: int = 1,
-                    remat=True) -> Callable:
+                    remat=True, rules=None, mesh=None) -> Callable:
     """Turns grad on for the model's floating parameters and returns its
     train step. With ``grad_accum`` > 1 the batch is cut into that many
     microbatches; their grads are summed in fp32 and divided by
     ``grad_accum``, and the loss is their mean. Metrics: ``loss``,
     ``grad_norm`` and ``lr`` (plus ``tokens`` and ``aux`` without
-    accumulation), detached 0-d tensors on the device."""
+    accumulation), detached 0-d tensors on the device. With ``rules``
+    (and their ``mesh``) the step is sharded as the module docstring
+    says; the metrics are then full values on every rank."""
     model.trainable()
     params = model.params()
     leaves = list(tree_leaves(params))
@@ -51,20 +77,33 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, grad_accum: int = 1,
     def grads_of(batch):
         loss, metrics = model.loss_fn(batch, remat=remat)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        grads = [torch.zeros_like(p) if g is None else
+                 g.redistribute(p.device_mesh, p.placements) if is_dtensor(g) else g
+                 for p, g in zip(leaves, grads)]
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    def sharded(fn):
+        def run(opt_state, batch):
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            with use_rules(rules, mesh), implicit_replication():
+                opt_state, metrics = fn(opt_state, batch)
+            return opt_state, {k: _replicated(v) for k, v in metrics.items()}
+        return run
+
+    def place(batch):
+        return batch if rules is None else _on_mesh(batch, model, rules, mesh)
 
     def train_step(opt_state, batch):
         batch = _on(batch, model.device)
         if grad_accum == 1:
-            loss, metrics, grads = grads_of(batch)
+            loss, metrics, grads = grads_of(place(batch))
         else:
             mbs = {k: _split(k, v, grad_accum) for k, v in batch.items()}
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                     for p in leaves]
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
             lsum = torch.zeros((), dtype=torch.float32, device=model.device)
             for i in range(grad_accum):
-                loss_i, _, g = grads_of({k: v[i] for k, v in mbs.items()})
+                loss_i, _, g = grads_of(place({k: v[i] for k, v in mbs.items()}))
                 for a, b in zip(grads, g):
                     a.add_(b)
                 lsum = lsum + loss_i
@@ -79,7 +118,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, grad_accum: int = 1,
         metrics["loss"] = loss
         return opt_state, metrics
 
-    return train_step
+    return train_step if rules is None else sharded(train_step)
 
 
 def make_eval_step(model: Model) -> Callable:

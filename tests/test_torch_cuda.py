@@ -934,3 +934,66 @@ def test_train_cli_on_card_resumes_bitwise(dev, capsys, tmp_path):
     assert "resumed from step 2" in capsys.readouterr().out
     for a, b in zip(resumed["model"].parameters(), whole["model"].parameters()):
         assert torch.equal(a, b)
+
+
+@pytest.fixture
+def mesh111(dev, tmp_path):
+    """A (1, 1, 1) pod/data/model mesh on a world-size-1 NCCL group (a
+    FileStore rendezvous, no network)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["olmo_1b", "mamba2_1p3b"])
+def test_sharded_loss_and_grads_on_card_equal_the_unsharded_bitwise(dev, mesh111, arch):
+    """Two layers at full width, bf16: ``loss_fn`` and every gradient with
+    DTensor parameters under the rules on a (1, 1, 1) mesh, K3/K4 on the
+    local shards (twice a layer under remat), equal to the unsharded
+    model's bitwise."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.sharding import (distribute, distribute_model, input_specs,
+                                             rules_for, sharding_tree)
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding import use_rules
+
+    cfg = replace(get_config(arch), num_layers=2)
+    B, S = 2, 256
+    rng = np.random.default_rng(5)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+    rules = rules_for(cfg, ShapeConfig("t", S, B, "train"), mesh111)
+    out = {}
+    for name in ("plain", "sharded"):
+        m = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+        if name == "sharded":
+            distribute_model(m, sharding_tree(m.axes(), rules, mesh111))
+        m.trainable()
+        leaves = list(m.parameters())
+        n3, n4 = flash_prefill_cuda.launches, ssd_intra_chunk_cuda.launches
+        if name == "plain":
+            loss, _ = m.loss_fn(batch)
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            _, shardings = input_specs(cfg, ShapeConfig("t", S, B, "train"), rules, mesh111)
+            with use_rules(rules, mesh111), implicit_replication():
+                loss, _ = m.loss_fn({k: distribute(v, shardings[k]) for k, v in batch.items()})
+                grads = torch.autograd.grad(loss, leaves)
+            loss, grads = loss.full_tensor(), [g.full_tensor() for g in grads]
+        out[name] = (loss, grads, (flash_prefill_cuda.launches - n3,
+                                   ssd_intra_chunk_cuda.launches - n4))
+        del m
+    attn = sum(spec.kind == "attn" for spec in cfg.block_pattern()) * cfg.num_blocks
+    assert out["sharded"][2] == out["plain"][2] == (2 * attn, 2 * (cfg.num_layers - attn))
+    assert torch.equal(out["sharded"][0], out["plain"][0])
+    for g, w in zip(out["sharded"][1], out["plain"][1]):
+        assert torch.equal(g, w)
