@@ -178,6 +178,29 @@ before the result line is printed:
     own host time, its dispatches and redistributes); olmo-1b's sharded
     parameters saved and restored onto the unsharded model bitwise;
 
+37. gradient compression: olmo-1b's full gradient tree from one 8 x 512
+    step with remat (K3 twice a layer), two rounds of ``compressed_psum``
+    with error feedback over the pod axis of a (1, 1, 1) mesh on a
+    world-size-1 NCCL group, int8 on the wire (``n_shards=1``) and int32
+    (asserted on the tensors handed to ``all_reduce``): every leaf within
+    half a step plus one ulp of g + e, the new error (g + e) - codes *
+    scale bitwise, the codes the CPU's outside half-integer ties; a round's
+    ms beside its byte bound, ``estimate_bytes``, peak memory;
+38. ``pipeline_apply`` with olmo-1b's whole stack as the one stage of a
+    (1,) pod mesh over the embedded 8 x 512 batch in 4 microbatches: K3
+    16 x 4 launches, the output bitwise the stack on each microbatch in
+    turn, ``bubble_fraction(1, 4)`` 0, its ms beside the stack's on the
+    whole batch (the ring between stages runs only in the CPU tests);
+39. the dry-run tools under this machine's torch, as subprocesses:
+    ``repro_torch.launch.dryrun`` at yi-9b train_4k on the (2, 16, 16)
+    multipod mesh, mamba2-1.3b prefill_32k and qwen3-moe-30b-a3b
+    decode_32k on the (16, 16) pod (fake process groups of 512 and 256
+    ranks, DTensors over ``meta``): FLOPs, collective bytes by kind,
+    memory fields, trace time and roofline terms; and
+    ``repro_torch.launch.grad_sync --arch jamba-v0.1-52b``: int8_ef's
+    all-reduce bytes half dense_bf16's and a quarter of dense_f32's plus
+    the fp32 maxima;
+
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -193,6 +216,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -3124,6 +3148,27 @@ def redistribute_probe(mesh) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def nccl_world1(name: str):
+    """A world-size-1 NCCL default group (a FileStore under build/, no
+    network), destroyed on exit."""
+    import shutil
+
+    import torch.distributed as dist
+
+    store = ROOT / "build" / f"{name}_store"
+    shutil.rmtree(store, ignore_errors=True)
+    store.mkdir(parents=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def phase_sharded_train(cfg, kernel, unsharded, card, steps, B=8, S=512, elastic=False):
     """Phase 36 for one model: ``cfg`` at full width and depth as phases
     33-34 build it (same seed, batch and AdamW config), its parameters
@@ -3236,26 +3281,14 @@ def phase_sharded(cfgs, kernels, train, card):
     """Phase 36: olmo-1b (5 steps, and the elastic round trip) and
     mamba2-1.3b (3 steps) under the sharding rules on a world-size-1 NCCL
     group (a FileStore under build/, no network), against phases 33-34."""
-    import shutil
-
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
-    store = ROOT / "build" / "phase36_store"
-    shutil.rmtree(store, ignore_errors=True)
-    store.mkdir(parents=True)
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"file://{store / 'rendezvous'}", rank=0,
-                            world_size=1)
-    try:
+    with nccl_world1("phase36"):
         out = {name: phase_sharded_train(cfgs[name], kernels[name], train[name], card,
                                          steps=steps, elastic=name == "olmo-1b")
                for name, steps in (("olmo-1b", 5), ("mamba2-1.3b", 3))}
         probe = redistribute_probe(init_device_mesh(
             "cuda", (1, 1, 1), mesh_dim_names=("pod", "data", "model")))
-    finally:
-        dist.destroy_process_group()
-        shutil.rmtree(store, ignore_errors=True)
 
     def part(name, r):
         h, hp = r["host_sharded"], r["host_unsharded"]
@@ -3292,6 +3325,324 @@ def phase_sharded(cfgs, kernels, train, card):
         f"{probe['busy_host_us']:.0f} us behind {probe['backlog_ms']:.1f} ms of queued work")
     out["redistribute_probe"] = probe
     return out
+
+
+# ---------------------------------------------------------------------------
+# phases 37-39: gradient compression, GPipe, the dry-run and grad-sync tools
+# ---------------------------------------------------------------------------
+def wire_spy():
+    """A patch of ``dist.all_reduce`` that keeps every tensor handed to it
+    (after the call: its reduced value) in ``spy.seen``."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    real, seen = dist.all_reduce, []
+
+    def spy(tensor, *args, **kwargs):
+        out = real(tensor, *args, **kwargs)
+        seen.append(tensor)
+        return out
+
+    patch = mock.patch.object(dist, "all_reduce", spy)
+    patch.seen = seen
+    return patch
+
+
+def half_ties(t: torch.Tensor) -> torch.Tensor:
+    """Where an fp32 quotient lies within 2e-5 of k + 1/2 (ulp(127) is
+    7.6e-6): one device's division may round it the other way."""
+    return (torch.abs(torch.abs(t - torch.floor(t)) - 0.5) < 2e-5)
+
+
+def phase_grad_comp(cfg, card, n=37, B=8, S=512):
+    """Phase 37: olmo-1b's full gradient tree from one B x S step with remat
+    (K3 twice a layer), then two rounds of ``compressed_psum`` with error
+    feedback over the pod axis of a (1, 1, 1) mesh on a world-size-1 NCCL
+    group, with ``n_shards=1`` (int8 on the wire) and without (int32): the
+    wire dtypes; for every leaf |g^ - (g + e0)| within half a step plus one
+    ulp of g^'s dtype, the new error equal to (g + e0) - codes * scale as
+    computed, the codes equal the CPU's outside half-integer ties (and
+    equal between the two wires); a round's time beside its byte bound."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.models import build_model
+    from repro_torch.training.grad_comp import (compressed_psum, estimate_bytes,
+                                                init_error_state)
+
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    model.trainable()
+    names, leaves = zip(*model.named_parameters())
+    batch = train_batch(cfg, B, S)
+    flash_prefill_cuda.launches = 0
+    loss, _ = model.loss_fn(batch)
+    grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
+    torch.cuda.synchronize()
+    launches = flash_prefill_cuda.launches
+    L = layer_counts(cfg)[0]
+    if launches != 2 * L:
+        fail(f"phase {n}: the gradient step launched flash_prefill {launches} times, "
+             f"expected 2 x {L}")
+    del model, loss, leaves
+    torch.cuda.empty_cache()
+    N = sum(g.numel() for g in grads.values())
+    g_bytes = sum(g.numel() * g.element_size() for g in grads.values())
+    eps = torch.finfo(next(iter(grads.values())).dtype).eps
+    peak_gb()
+    out = {"launches": launches, "elements": N, "leaves": len(grads),
+           "estimate_bytes": estimate_bytes(grads), "rounds": {}}
+    with nccl_world1("phase37"):
+        import torch.distributed as dist
+
+        group = init_device_mesh("cuda", (1, 1, 1),
+                                 mesh_dim_names=("pod", "data", "model")).get_group("pod")
+        ranks = dist.get_world_size(group)
+        codes = {}
+        for wire, n_shards in (("int8", 1), ("int32", None)):
+            e0 = init_error_state(grads)
+            rounds = []
+            for r in range(2):
+                spy = wire_spy()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with spy:
+                    ghat, e1 = compressed_psum(grads, e0, group, n_shards=n_shards)
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+                dtypes = [str(x.dtype) for x in spy.seen]
+                if dtypes != ["torch.float32"] + [f"torch.{wire}"] * len(grads):
+                    fail(f"phase {n}: {wire} round {r}: all_reduce was handed "
+                         f"{sorted(set(dtypes))}")
+                qmax = 127.0
+                scales = spy.seen[0] / qmax + 1e-12
+                worst, ties, off = 0.0, 0, 0
+                for i, k in enumerate(grads):
+                    gf = grads[k].float() + e0[k]
+                    q, scale = spy.seen[1 + i], scales[i]
+                    gh = ghat[k].float()
+                    excess = (torch.abs(gh - gf) - (scale / 2 + eps * torch.abs(gh))).max()
+                    worst = max(worst, float(torch.abs(gh - gf).max() / scale))
+                    if excess > 1e-6 * float(scale):
+                        fail(f"phase {n}: {wire} round {r} {k}: |g^ - (g + e)| exceeds half a "
+                             f"step plus one ulp by {float(excess):.3e}")
+                    if not torch.equal(e1[k], gf - q.float() * scale):
+                        fail(f"phase {n}: {wire} round {r} {k}: the new error is not "
+                             f"(g + e) - codes * scale")
+                    if not torch.equal(ghat[k], (q.float() * scale / ranks).to(grads[k].dtype)):
+                        fail(f"phase {n}: {wire} round {r} {k}: g^ is not codes * scale")
+                    if wire == "int8":
+                        codes[(r, k)] = q
+                        cpu_gf = grads[k].cpu().float() + e0[k].cpu()
+                        cpu_scale = scales[i].cpu()
+                        t_cpu = cpu_gf / cpu_scale
+                        want = torch.clamp(torch.round(t_cpu), -127, 127).to(torch.int8)
+                        tie = half_ties(t_cpu)
+                        ties += int(tie.sum())
+                        off += int(((q.cpu() != want) & ~tie).sum())
+                    elif not torch.equal(q.to(torch.int8), codes[(r, k)]):
+                        fail(f"phase {n}: round {r} {k}: the int32 wire's codes differ from "
+                             f"the int8 wire's")
+                if off:
+                    fail(f"phase {n}: {wire} round {r}: {off} codes differ from the CPU's "
+                         f"outside half-integer ties")
+                rounds.append({"wall_ms": wall_ms, "max_err_over_step": worst, "ties": ties,
+                               "wire": sorted(set(dtypes))})
+                del spy, ghat
+                e0 = e1
+            out["rounds"][wire] = rounds
+        del codes
+
+        def one_round():
+            compressed_psum(grads, e0, group, n_shards=1)
+
+        torch.cuda.synchronize()
+        ms = Timer().ms(one_round, samples=5, warmup=1)
+    # inputs g (bf16) and e (fp32) read once, g^ and the new e written once
+    e_bytes = 4 * N
+    bound = bound_ms(2 * (g_bytes + e_bytes), 0)[0]
+    out.update(ms=ms, bound_ms=bound, peak_gb=peak_gb())
+    del grads, e0
+    torch.cuda.empty_cache()
+    r8, r32 = out["rounds"]["int8"], out["rounds"]["int32"]
+    log(f"phase {n} compressed_psum on {card}: {cfg.name}'s gradient tree from one {B} x {S} "
+        f"step with remat ({launches} flash_prefill launches, {out['leaves']} leaves, {N / 1e9:.3f} B elements), 2 rounds with error feedback over the pod axis of a "
+        f"(1, 1, 1) mesh (world size 1, NCCL): all_reduce handed float32 maxima then "
+        f"{r8[0]['wire'][-1]} codes with n_shards=1 and {r32[0]['wire'][-1]} without; every "
+        f"leaf's |g^ - (g + e)| within half a step plus one bf16 ulp (worst "
+        f"{max(x['max_err_over_step'] for x in r8 + r32):.3f} of a step), the new error "
+        f"(g + e) - codes * scale bitwise, codes equal the CPU's outside "
+        f"{[x['ties'] for x in r8]} half-integer ties and equal on both wires; a round "
+        f"{ms:.2f} ms (CUDA events, median of 5; wall {r8[1]['wall_ms']:.1f} ms) against its "
+        f"byte bound {bound:.2f} ms at 3.35 TB/s ({2 * (g_bytes + e_bytes) / 1e9:.2f} GB); "
+        f"estimate_bytes {out['estimate_bytes']}; peak {out['peak_gb']:.2f} GB")
+    return out
+
+
+def phase_pipeline(cfg, card, n=38, B=8, S=512, n_micro=4):
+    """Phase 38: ``pipeline_apply`` on a (1,) pod mesh (world size 1, NCCL)
+    with olmo-1b's whole stack in bf16 as the one stage, over the embedded
+    B x S batch in ``n_micro`` microbatches: K3 L x n_micro launches, the
+    output bitwise the stack applied to each microbatch in turn,
+    ``bubble_fraction(1, n_micro)`` 0; its ms beside the stack's on the
+    whole batch. One card holds one stage: the ring between stages runs
+    only in the CPU tests (4 gloo ranks)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.models.transformer import apply_stack_full
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.pipeline import bubble_fraction, pipeline_apply
+
+    model = build_model(cfg).init(torch.Generator("cuda").manual_seed(0))
+    tokens = train_batch(cfg, B, S)["tokens"]
+    x = embed_tokens(tokens, model["embed"], cfg.embed_scale, cfg.d_model)
+    stack = model.params()["stack"]
+    stage_params = tree_map(lambda a: a[None], stack)     # one stage: a leading dim of 1
+
+    def stage(h, params):
+        pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)[None].expand(
+            h.shape[0], -1)
+        return apply_stack_full(h, params, cfg, pos)[0]
+
+    L = layer_counts(cfg)[0]
+    with torch.no_grad(), nccl_world1("phase38"):
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        flash_prefill_cuda.launches = 0
+        y = pipeline_apply(stage, x, stage_params, mesh=mesh, axis="pod", n_micro=n_micro)
+        torch.cuda.synchronize()
+        launches = flash_prefill_cuda.launches
+        mb = B // n_micro
+        want = torch.cat([stage(x[i:i + mb], stack) for i in range(0, B, mb)])
+        if launches != L * n_micro:
+            fail(f"phase {n}: the pipeline launched flash_prefill {launches} times, expected "
+                 f"{L} x {n_micro}")
+        if not torch.equal(y, want):
+            fail(f"phase {n}: the pipeline's output differs from the stack on each microbatch "
+                 f"(max |d| {(y.float() - want.float()).abs().max().item():.3e})")
+        if bubble_fraction(1, n_micro) != 0:
+            fail(f"phase {n}: bubble_fraction(1, {n_micro}) = {bubble_fraction(1, n_micro)}")
+
+        def wall(fn, reps=5):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            return float(np.median(times))
+
+        pipe_ms = wall(lambda: pipeline_apply(stage, x, stage_params, mesh=mesh, axis="pod",
+                                              n_micro=n_micro))
+        whole_ms = wall(lambda: stage(x, stack))
+        micro_ms = wall(lambda: stage(x[:mb], stack))
+    del model, x, y, want
+    torch.cuda.empty_cache()
+    log(f"phase {n} pipeline_apply on {card}: {cfg.name}'s whole stack ({L} layers, bf16) as "
+        f"the one stage of a (1,) pod mesh (world size 1, NCCL), the embedded {B} x {S} batch "
+        f"in {n_micro} microbatches: {launches} flash_prefill launches ({L} x {n_micro}), output "
+        f"bitwise the stack on each microbatch in turn, bubble_fraction(1, {n_micro}) = 0; "
+        f"{pipe_ms:.1f} ms against {whole_ms:.1f} ms for the stack on the whole batch and "
+        f"{micro_ms:.1f} ms on one microbatch (host clock, synced, median of 5); one card holds one stage, so no handoff runs here: the "
+        f"ring between stages runs in tests/test_torch_pipeline.py on 4 gloo ranks")
+    return {"launches": launches, "ms": pipe_ms, "stack_whole_batch_ms": whole_ms,
+            "stack_microbatch_ms": micro_ms, "n_micro": n_micro, "bitwise": True}
+
+
+DRYRUN_CELLS = (("yi-9b", "train_4k", "multipod"), ("mamba2-1.3b", "prefill_32k", "pod"),
+                ("qwen3-moe-30b-a3b", "decode_32k", "pod"))
+GRAD_SYNC_ARCH = "jamba-v0.1-52b"
+
+
+def phase_dryrun(card, n=39, tag="chip_smoke", timeout=600):
+    """Phase 39: the dry-run (``python -m repro_torch.launch.dryrun``) of a
+    train, a prefill and a decode cell at full width on the production
+    meshes (256 or 512 ranks of a ``fake`` group, DTensors over ``meta``)
+    and ``python -m repro_torch.launch.grad_sync``, each a subprocess of
+    its own, all at once, under this machine's torch: every one exits 0;
+    each cell's FLOPs, collective bytes by kind, memory fields, trace time
+    and roofline terms; int8_ef's all-reduce bytes half dense_bf16's and a
+    quarter of dense_f32's, plus the fp32 maxima (4 bytes a leaf)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import analyze
+    from repro_torch.training.optimizer import tree_leaves
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    work = ROOT / "build" / "phase39"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cmds = {f"{a} {s} {m}": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+                             "--shape", s, "--mesh", m, "--tag", tag, "--force"]
+            for a, s, m in DRYRUN_CELLS}
+    cmds["grad_sync"] = [sys.executable, "-m", "repro_torch.launch.grad_sync", "--arch",
+                         GRAD_SYNC_ARCH, "--out", str(work / "grad_sync.json")]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+             for name, cmd in cmds.items()}
+    outs = {}
+    try:
+        for name, p in procs.items():
+            outs[name] = p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    bad = {name: outs.get(name, "")[-2000:] for name, p in procs.items() if p.returncode}
+    if bad:
+        fail(f"phase {n}: {list(bad)} exited non-zero: {bad}")
+    cells = {}
+    for a, s, m in DRYRUN_CELLS:
+        with open(dryrun.cell_path(a, s, m, tag)) as f:
+            rec = json.load(f)
+        if "error" in rec or not rec.get("flops"):
+            fail(f"phase {n}: {a} {s} {m}: {rec.get('error', 'no FLOPs')}")
+        roof = analyze(rec)
+        cells[f"{a} {s} {m}"] = dict(rec, roofline={
+            "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+            "collective_s": roof.collective_s, "bottleneck": roof.bottleneck,
+            "useful_ratio": roof.useful_ratio, "mfu": roof.mfu})
+    for mesh_kind in {m for _, _, m in DRYRUN_CELLS}:
+        shutil.rmtree(Path(dryrun.ARTIFACT_DIR) / f"{mesh_kind}_{tag}", ignore_errors=True)
+    with open(work / "grad_sync.json") as f:
+        sync_res = json.load(f)["results"]
+    shutil.rmtree(work, ignore_errors=True)
+    f32, bf16, int8 = (sync_res[k]["all-reduce"] for k in ("dense_f32", "dense_bf16", "int8_ef"))
+    n_leaves = len(list(tree_leaves(build_model(get_config(GRAD_SYNC_ARCH)).param_shapes())))
+    if not (f32 == 2 * bf16 and 2 * int8 - bf16 == 2 * 4 * n_leaves
+            and sync_res["int8_ef"]["count"] == n_leaves + 1):
+        fail(f"phase {n}: grad_sync all-reduce bytes f32 {f32}, bf16 {bf16}, int8 {int8} are "
+             f"not 4 : 2 : 1 plus {n_leaves} fp32 maxima")
+
+    def cell_line(name, r):
+        c = {k: v for k, v in r["collectives"].items() if v}
+        mem = {k.replace("_size_in_bytes", ""): r[k] for k in
+               ("argument_size_in_bytes", "output_size_in_bytes", "temp_size_in_bytes",
+                "alias_size_in_bytes")}
+        ro = r["roofline"]
+        return (f"{name} ({r['devices']} ranks): {r['flops']:.4g} FLOPs, "
+                f"{r['bytes_accessed']:.4g} bytes accessed, collectives {c}, memory {mem}, "
+                f"trace {r['trace_s']} s; roofline compute {ro['compute_s']:.3g} s, memory "
+                f"{ro['memory_s']:.3g} s, collective {ro['collective_s']:.3g} s "
+                f"({ro['bottleneck']})")
+
+    log(f"phase {n} dry-run and grad-sync under torch {torch.__version__} ({card}; meshes over "
+        f"a fake process group, DTensors over meta, the kernels' plain versions), 4 "
+        f"subprocesses in {wall_s:.1f} s: " + "; ".join(cell_line(k, r) for k, r in cells.items())
+        + f"; grad_sync --arch {GRAD_SYNC_ARCH} on (2, 16, 16): all-reduce bytes/device "
+        f"dense_f32 {f32 / 1e9:.3f} GB, dense_bf16 {bf16 / 1e9:.3f} GB, int8_ef "
+        f"{int8 / 1e9:.3f} GB (= bf16/2 + 4 x {n_leaves} bytes of maxima)")
+    return {"cells": cells, "grad_sync": sync_res, "n_leaves": n_leaves, "wall_s": wall_s,
+            "torch": torch.__version__}
 
 
 # ---------------------------------------------------------------------------
@@ -3463,6 +3814,9 @@ def main() -> int:
                              "mamba2-1.3b": get_config("mamba2_1p3b")},
                             {"olmo-1b": flash_prefill_cuda, "mamba2-1.3b": ssd_intra_chunk_cuda},
                             train, card)
+    grad_comp = phase_grad_comp(get_config("olmo_1b"), card)
+    pipeline = phase_pipeline(get_config("olmo_1b"), card)
+    dry = phase_dryrun(card)
 
     sources = {
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
@@ -3499,6 +3853,8 @@ def main() -> int:
         "train_cli": {"flash_prefill": train_cli["flash_prefill"]},
         "olmo-1b sharded training": {"flash_prefill": sharded["olmo-1b"]["launches"]},
         "mamba2-1.3b sharded training": {"ssd_intra_chunk": sharded["mamba2-1.3b"]["launches"]},
+        "grad_comp_step": {"flash_prefill": grad_comp["launches"]},
+        "pipeline": {"flash_prefill": pipeline["launches"]},
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -3522,7 +3878,8 @@ def main() -> int:
               "moe_kernels": moe_k3, "moe": moes, "jamba_kernels": j_kernels, "jamba": jamba,
               "whisper_kernels": w_kernels, "whisper": whisper, "serve_cli": cli,
               "kernel_grads": grads, "train": train, "train_cli": train_cli,
-              "sharded": sharded, "kernels": kernels}
+              "sharded": sharded, "grad_comp": grad_comp, "pipeline": pipeline,
+              "dryrun": dry, "kernels": kernels}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(result, indent=1))

@@ -2,10 +2,11 @@
 The counterpart of ``src/repro/kernels/flash_prefill/ops.py``.
 
 The device of ``q`` decides: a CPU tensor takes ``flash_prefill_ref``
-under plain autograd; a CUDA tensor goes through ``FlashPrefillFn``,
-whose forward launches the kernel (or raises) and whose backward is the
-plain-torch gradient of ``grad.py``. There is no backend argument and no
-fallback.
+under plain autograd; a ``meta`` tensor (shapes only: the dry-run's
+costing, ``launch/dryrun.py``) takes it too; a CUDA tensor goes through
+``FlashPrefillFn``, whose forward launches the kernel (or raises) and
+whose backward is the plain-torch gradient of ``grad.py``. There is no
+backend argument and no fallback.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ def flash_prefill(q, k, v, window: int = 0, softcap: float = 0.0):
     an optional sliding ``window`` and tanh ``softcap`` (0: none).
     Returns (B,S,Hq,D) in q's dtype."""
     if q.device.type == "cpu":
+        return flash_prefill_ref(q, k, v, window=window, softcap=softcap)
+    if q.device.type == "meta":    # no data to run a kernel on: the plain version's shapes
         return flash_prefill_ref(q, k, v, window=window, softcap=softcap)
     return FlashPrefillFn.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                 window, softcap, flash_prefill_cuda)

@@ -1,7 +1,9 @@
 """Dispatching wrapper for sandboxed paged decode attention.
 
 The device of ``q`` decides: a CPU tensor takes the plain PyTorch
-version; a CUDA tensor launches the CUDA kernel or raises. There is no
+version, and so does a ``meta`` tensor (shapes only: the dry-run's
+costing, ``launch/dryrun.py``); a CUDA tensor launches the CUDA kernel
+or raises. There is no
 fallback and no option that runs the plain version on the card.
 ``paged_attention.launches`` counts kernel launches.
 """
@@ -23,6 +25,9 @@ def paged_attention(q, k_pool, v_pool, block_tab, seq_lens, perm_bits,
     must be failed with E_SANDBOX, per §4.4).
     """
     if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pool, v_pool, block_tab, seq_lens,
+                                   perm_bits, sandbox, bitmap)
+    if q.device.type == "meta":    # no data to run a kernel on: the plain version's shapes
         return paged_attention_ref(q, k_pool, v_pool, block_tab, seq_lens,
                                    perm_bits, sandbox, bitmap)
     result = paged_attention_cuda(q, k_pool, v_pool, block_tab, seq_lens,

@@ -3,7 +3,9 @@ plain version), the inter-chunk recurrence and the off-diagonal term in
 torch. The counterpart of ``src/repro/kernels/ssd/ops.py``.
 
 The device of ``x`` decides: a CPU tensor takes ``ssd_intra_chunk_ref``
-under plain autograd; a CUDA tensor goes through ``SsdIntraChunkFn``,
+under plain autograd, and so does a ``meta`` tensor (shapes only: the
+dry-run's costing, ``launch/dryrun.py``); a CUDA tensor goes through
+``SsdIntraChunkFn``,
 whose forward launches the kernel (or raises) and whose backward is the
 plain-torch gradient of ``grad.py``. There is no backend argument and no
 fallback.
@@ -43,6 +45,8 @@ def ssd_intra_chunk(x, dt, A, Bm, Cm, chunk: int):
     device of ``x``: the plain version on the CPU, the kernel through
     ``SsdIntraChunkFn`` on the card."""
     if x.device.type == "cpu":
+        return ssd_intra_chunk_ref(x, dt, A, Bm, Cm, chunk)
+    if x.device.type == "meta":    # no data to run a kernel on: the plain version's shapes
         return ssd_intra_chunk_ref(x, dt, A, Bm, Cm, chunk)
     return SsdIntraChunkFn.apply(x, dt, A, Bm, Cm, chunk, ssd_intra_chunk_cuda)
 

@@ -132,7 +132,8 @@ def _scalar_pos(positions):
 # core attention math (GQA, chunked over queries)
 # ---------------------------------------------------------------------------
 def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
-            softcap: float = 0.0, kv_valid: Optional[torch.Tensor] = None):
+            softcap: float = 0.0, kv_valid: Optional[torch.Tensor] = None,
+            stats: bool = False):
     """q: (B,Sq,H,D); k,v: (B,Skv,Hkv,D); *_pos: (B,S*), or ``None`` when
     not ``causal``. A key is visible when ``q_pos >= kv_pos`` (causal),
     ``q_pos - kv_pos < window`` (when ``window``) and ``kv_valid``. Scores
@@ -140,6 +141,11 @@ def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
 
     Scores materialize as (B, Hkv, qpk, Cq, Skv) fp32 for chunks of
     ``Q_CHUNK`` queries; decode has Sq = 1.
+
+    With ``stats`` the softmax is left open over these keys: returns the
+    fp32 (B,Sq,H,D) sum of exp(s − m)·v, the row maxima m and the sums of
+    exp(s − m) (B,Sq,H), for a caller that combines key ranges
+    (``_attend_local`` over a sequence-sharded cache).
     """
     B, Sq, H, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -164,16 +170,125 @@ def _attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
         if kv_valid is not None:
             mask = mask & kv_valid[:, None, None, None, :]
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        if stats:
+            m = s.amax(dim=-1, keepdim=True)
+            e = torch.exp(s - m)
+            o = torch.einsum("bgpqk,bkgd->bqgpd", e, v.float())
+            return o, m[..., 0].permute(0, 3, 1, 2), e.sum(-1).permute(0, 3, 1, 2)
         w = torch.softmax(s, dim=-1)
         return torch.einsum("bgpqk,bkgd->bqgpd", w.to(v.dtype), v)
 
     if Sq <= Q_CHUNK:
-        out = attend_chunk(qg, q_pos)
+        parts = [attend_chunk(qg, q_pos)]
     else:
-        out = torch.cat([attend_chunk(qg[:, c0:c0 + Q_CHUNK],
-                                      q_pos if q_pos is None else q_pos[:, c0:c0 + Q_CHUNK])
-                         for c0 in range(0, Sq, Q_CHUNK)], dim=1)
+        parts = [attend_chunk(qg[:, c0:c0 + Q_CHUNK],
+                              q_pos if q_pos is None else q_pos[:, c0:c0 + Q_CHUNK])
+                 for c0 in range(0, Sq, Q_CHUNK)]
+    if stats:
+        o, m, l = (torch.cat(x, dim=1) if len(parts) > 1 else x[0] for x in zip(*parts))
+        return o.reshape(B, Sq, H, Dh), m.reshape(B, Sq, H), l.reshape(B, Sq, H)
+    out = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     return out.reshape(B, Sq, H, Dh)
+
+
+def _as_dtensor(x, mesh):
+    """A DTensor as it is; a plain tensor (the same full value on every
+    rank: positions the model makes) as a replicated DTensor."""
+    if is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _kv_heads_of_local_q(q, k):
+    """For DTensor q and K laid out by ``_Q_AXES`` and ``_KV_AXES``: where
+    q's heads are sharded and K's are not (GQA whose ``kv_heads`` do not
+    divide the model axis), a rank's query heads [o, o + h) read the K/V
+    heads ``g // (H / Hkv)`` of their global index g, not the first of its
+    local view. Returns the index of those K/V heads in the local view
+    (a slice when all h share one, else one per query head), or ``None``
+    when the local views already match."""
+    from torch.distributed.tensor import Shard
+
+    q_heads, kv_heads = ({i for i, pl in enumerate(t.placements)
+                          if isinstance(pl, Shard) and pl.dim == 2} for t in (q, k))
+    if kv_heads and kv_heads != q_heads:
+        raise NotImplementedError(f"K/V heads sharded over mesh dims {sorted(kv_heads)}, "
+                                  f"query heads over {sorted(q_heads)}")
+    if not q_heads or kv_heads:
+        return None
+    off, h = shard_offset(q, 2)
+    qpk = q.shape[2] // k.shape[2]
+    first, last = off // qpk, (off + h - 1) // qpk
+    return (slice(first, first + 1) if first == last else
+            torch.div(torch.arange(off, off + h), qpk, rounding_mode="floor"))
+
+
+def _cut_heads(kv_of, kl, vl):
+    if kv_of is None:
+        return kl, vl
+    idx = kv_of if isinstance(kv_of, slice) else kv_of.to(kl.device)
+    return kl[:, :, idx], vl[:, :, idx]
+
+
+def _attend_local(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
+                  softcap: float = 0.0, kv_valid=None, kv_seq: Optional[str] = None):
+    """``_attend`` on each rank's local shards under a mesh (``_attend``
+    itself on plain tensors): one DTensor dispatch a layer instead of one
+    an operator, whose sharding propagation over 5-d scores on a 3-d mesh
+    is slow enough to stall a trace. q is laid out by batch, ``attn_q``
+    rows and ``heads``; K and V by batch, ``kv_seq`` (the logical axis of
+    their sequence dim, ``"kv_seq"`` for a decode cache, else whole) and
+    ``kv_heads``; positions and ``kv_valid`` as the rows they mask.
+
+    Where ``kv_seq`` shards K and V over mesh dims, every query row needs
+    every range of keys: q goes whole over its heads, each rank attends
+    over its own keys with the softmax left open (``stats``), and the
+    ranges are combined across those dims, flash-decoding style: all-reduces
+    of the row maxima (max), then of the rescaled sums and weighted values
+    (sum). No gradient flows through that combine (decode only)."""
+    if not is_dtensor(q):
+        return _attend(q, k, v, q_pos, kv_pos, causal=causal, window=window,
+                       softcap=softcap, kv_valid=kv_valid)
+    from torch.distributed.tensor import Shard
+
+    mesh = q.device_mesh
+    kv_ax = ("batch", kv_seq, "kv_heads", None)
+    k, v = shard(k, kv_ax), shard(v, kv_ax)
+    seq_dims = [i for i, pl in enumerate(k.placements) if isinstance(pl, Shard) and pl.dim == 1]
+    q_ax = ("batch", "attn_q", None if seq_dims else "heads", None)
+    q = shard(q, q_ax)
+    kv_of = _kv_heads_of_local_q(q, k)
+    args = [(q, q_ax), (k, kv_ax), (v, kv_ax)]
+    rest = [(name, t, ax) for name, t, ax in (("q_pos", q_pos, ("batch", "attn_q")),
+                                              ("kv_pos", kv_pos, ("batch", kv_seq)),
+                                              ("kv_valid", kv_valid, ("batch", kv_seq)))
+            if t is not None]
+    args += [(_as_dtensor(t, mesh), ax) for _, t, ax in rest]
+
+    def run(ql, kl, vl, *extra):
+        kl, vl = _cut_heads(kv_of, kl, vl)
+        kw = dict(zip([name for name, _, _ in rest], extra))
+        kw.setdefault("q_pos", None)
+        kw.setdefault("kv_pos", None)
+        if not seq_dims:
+            return _attend(ql, kl, vl, causal=causal, window=window, softcap=softcap, **kw)
+        import torch.distributed._functional_collectives as funcol
+
+        o, m, l = _attend(ql, kl, vl, causal=causal, window=window, softcap=softcap,
+                          stats=True, **kw)
+        big = m
+        for i in seq_dims:
+            big = funcol.all_reduce(big, "max", mesh.get_group(i))
+        w = torch.exp(m - big)
+        o, l = o * w[..., None], l * w
+        for i in seq_dims:
+            o = funcol.all_reduce(o, "sum", mesh.get_group(i))
+            l = funcol.all_reduce(l, "sum", mesh.get_group(i))
+        return (o / l[..., None]).to(vl.dtype)
+
+    return local_call(run, args, out_axes=[q_ax])
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +312,7 @@ def attention_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
     q = _project_q(x, p, cfg)
     if memory is not None:
         k, v = _project_kv(memory, p, cfg)
-        out = _attend(q, k, v, None, None, causal=False, softcap=cfg.attn_logit_softcap)
+        out = _attend_local(q, k, v, None, None, causal=False, softcap=cfg.attn_logit_softcap)
         attention_full.paths["memory"] += 1
         return _project_out(out, p), ({"k": k, "v": v} if want_cache else None)
     k, v = _project_kv(x, p, cfg)
@@ -206,8 +321,8 @@ def attention_full(x, p, cfg: ModelConfig, spec: LayerSpec, positions,
     k = shard(k, _KV_AXES)
     pos = _scalar_pos(positions)
     if caller_positions:
-        out = _attend(q, k, v, pos, pos, causal=True, window=spec.sliding_window,
-                      softcap=cfg.attn_logit_softcap)
+        out = _attend_local(q, k, v, pos, pos, causal=True, window=spec.sliding_window,
+                            softcap=cfg.attn_logit_softcap)
         attention_full.paths["positions"] += 1
     else:
         out = _flash_prefill_local(q, k, v, window=spec.sliding_window,
@@ -223,6 +338,7 @@ attention_full.paths = {"flash_prefill": 0, "positions": 0, "memory": 0}
 
 _Q_AXES = ("batch", "seq", "heads", None)
 _KV_AXES = ("batch", "seq", "kv_heads", None)
+_CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)
 
 
 def _flash_prefill_local(q, k, v, window: int, softcap: float):
@@ -239,25 +355,11 @@ def _flash_prefill_local(q, k, v, window: int, softcap: float):
     gradients are partial sums over the ranks that cut them (``local_call``)."""
     kv_of = None
     if is_dtensor(q):
-        from torch.distributed.tensor import Shard
-
         q, k = shard(q, _Q_AXES), shard(k, _KV_AXES)
-        q_heads, kv_heads = ({i for i, pl in enumerate(t.placements)
-                              if isinstance(pl, Shard) and pl.dim == 2} for t in (q, k))
-        if kv_heads and kv_heads != q_heads:
-            raise NotImplementedError(f"K/V heads sharded over mesh dims {sorted(kv_heads)}, "
-                                      f"query heads over {sorted(q_heads)}")
-        if q_heads and not kv_heads:
-            off, h = shard_offset(q, 2)
-            qpk = q.shape[2] // k.shape[2]
-            first, last = off // qpk, (off + h - 1) // qpk
-            kv_of = (slice(first, first + 1) if first == last else
-                     torch.div(torch.arange(off, off + h), qpk, rounding_mode="floor"))
+        kv_of = _kv_heads_of_local_q(q, k)
 
     def run(ql, kl, vl):
-        if kv_of is not None:
-            idx = kv_of if isinstance(kv_of, slice) else kv_of.to(kl.device)
-            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        kl, vl = _cut_heads(kv_of, kl, vl)
         return flash_prefill(ql, kl, vl, window=window, softcap=softcap)
 
     return local_call(run, [(q, _Q_AXES), (k, _KV_AXES), (v, _KV_AXES)], out_axes=[_Q_AXES])
@@ -271,7 +373,19 @@ def _build_cache(k, v, pos, window: int, cache_len: int):
     """Prefill→decode cache. A windowed layer keeps a ring of the last
     ``min(window, cache_len)`` tokens at slot ``pos % size``; a global
     layer keeps every token at slot ``pos`` up to ``cache_len``. Unwritten
-    slots carry position -1."""
+    slots carry position -1. Under a mesh each rank builds its rows and
+    heads from its local K and V, whole along the sequence, and the cache
+    is then laid out by ``_CACHE_AXES`` (a slice where ``kv_seq`` shards)."""
+    if is_dtensor(k):
+        def run(kl, vl, pl):
+            return tuple(_build_cache(kl, vl, pl, window, cache_len).values())
+
+        whole = ("batch", None, "kv_heads", None)
+        ck, cv, cpos = local_call(
+            run, [(k, _KV_AXES), (v, _KV_AXES), (_as_dtensor(pos, k.device_mesh), ("batch", "seq"))],
+            out_axes=[whole, whole, whole[:2]])
+        return {"k": shard(ck, _CACHE_AXES), "v": shard(cv, _CACHE_AXES),
+                "pos": shard(cpos, _CACHE_AXES[:2])}
     B, S = k.shape[0], k.shape[1]
     size = _cache_size(window, cache_len)
     ck = torch.zeros((B, size) + tuple(k.shape[2:]), dtype=k.dtype,
@@ -286,6 +400,33 @@ def _build_cache(k, v, pos, window: int, cache_len: int):
     cv[bidx, slots] = v
     cpos[bidx, slots] = pos.to(torch.int32)
     return {"k": ck, "v": cv, "pos": cpos}
+
+
+def _write_slots(c, slot, new):
+    """``c[b, slot[b]] = new[b]`` for every row b, in place: c (B, size,
+    ...), slot (B,), new (B, ...) in c's dtype. On a DTensor cache each rank
+    writes into its local shard: its rows, its heads, and of a sequence
+    that ``kv_seq`` shards only the slots in its range (the others keep
+    their values); new and slot are laid out to match first."""
+    if not is_dtensor(c):
+        c[torch.arange(c.shape[0], device=c.device), slot] = new
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = c.device_mesh
+    rows = [Shard(0) if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+            for pl in c.placements]
+    cols = [Shard(pl.dim - 1) if isinstance(pl, Shard) and pl.dim >= 2 else r
+            for pl, r in zip(c.placements, rows)]
+    new_l = _as_dtensor(new, mesh).redistribute(mesh, cols).to_local()
+    slot_l = _as_dtensor(slot, mesh).redistribute(mesh, rows).to_local()
+    off, n = shard_offset(c, 1)
+    cl = c.to_local()
+    local = slot_l - off
+    inside = ((local >= 0) & (local < n)).reshape((-1,) + (1,) * (new_l.dim() - 1))
+    local = local.clamp(0, n - 1)
+    b = torch.arange(cl.shape[0], device=cl.device)
+    cl[b, local] = torch.where(inside, new_l, cl[b, local])
 
 
 def _kv_load(c):
@@ -324,8 +465,8 @@ def attention_decode(x, p, cfg: ModelConfig, spec: LayerSpec, cache: Params,
     """
     if memory_cache is not None:
         q = _project_q(x, p, cfg)
-        out = _attend(q, memory_cache["k"], memory_cache["v"], None, None, causal=False,
-                      softcap=cfg.attn_logit_softcap)
+        out = _attend_local(q, memory_cache["k"], memory_cache["v"], None, None,
+                            causal=False, softcap=cfg.attn_logit_softcap)
         return _project_out(out, p), cache
     B = x.shape[0]
     pos_vec = pos.expand(B) if pos.dim() == 0 else pos
@@ -337,16 +478,16 @@ def attention_decode(x, p, cfg: ModelConfig, spec: LayerSpec, cache: Params,
 
     ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
     slot = (pos_vec % ck.shape[1] if spec.sliding_window else pos_vec).long()
-    bidx = torch.arange(B, device=x.device)
-    ck[bidx, slot] = _kv_store(k_new[:, 0], ck.dtype)
-    cv[bidx, slot] = _kv_store(v_new[:, 0], cv.dtype)
-    cpos[bidx, slot] = pos_vec.to(cpos.dtype)
+    _write_slots(ck, slot, _kv_store(k_new[:, 0], ck.dtype))
+    _write_slots(cv, slot, _kv_store(v_new[:, 0], cv.dtype))
+    _write_slots(cpos, slot, pos_vec.to(cpos.dtype))
 
-    ck_s = shard(_kv_load(ck), ("batch", "kv_seq", "kv_heads", None))
-    cv_s = shard(_kv_load(cv), ("batch", "kv_seq", "kv_heads", None))
-    out = _attend(q, ck_s, cv_s, pos2, cpos, causal=True,
-                  window=spec.sliding_window, softcap=cfg.attn_logit_softcap,
-                  kv_valid=cpos >= 0)
+    ck_s = shard(_kv_load(ck), _CACHE_AXES)
+    cv_s = shard(_kv_load(cv), _CACHE_AXES)
+    out = _attend_local(q, ck_s, cv_s, pos2, cpos, causal=True,
+                        window=spec.sliding_window, softcap=cfg.attn_logit_softcap,
+                        kv_valid=cpos >= 0, kv_seq="kv_seq")
+    out = shard(out, _Q_AXES)
     return _project_out(out, p), cache
 
 

@@ -168,6 +168,18 @@ class ModelConfig:
                                             + n * d * self.d_ff)
         return total
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of num_experts), the
+        reference's formula."""
+        if not self.num_experts:
+            return self.param_count()
+        full = self.param_count()
+        moe_layers = sum(
+            1 for s in self.block_pattern() if s.moe) * self.num_blocks
+        inactive = moe_layers * (self.num_experts - self.top_k) * \
+            3 * self.d_model * self.moe_d_ff
+        return full - inactive
+
 
 @dataclass(frozen=True)
 class ShapeConfig:

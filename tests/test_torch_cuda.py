@@ -997,3 +997,86 @@ def test_sharded_loss_and_grads_on_card_equal_the_unsharded_bitwise(dev, mesh111
     assert torch.equal(out["sharded"][0], out["plain"][0])
     for g, w in zip(out["sharded"][1], out["plain"][1]):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_shards", [1, None])
+def test_compressed_psum_on_card_equals_the_cpu(dev, mesh111, n_shards):
+    """Two rounds of ``compressed_psum`` with error feedback over the pod
+    axis (NCCL, world size 1) on a smoke tree of bf16 and fp32 leaves,
+    against the same on the CPU over a gloo group: the codes' dtype on the
+    wire, and ĝ and the error state equal outside half-integer ties."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from repro_torch.training.grad_comp import compressed_psum, init_error_state
+
+    rng = np.random.default_rng(4)
+    shapes = {"w": ((64, 48), torch.bfloat16), "b": ((48,), torch.float32),
+              "stack": ((2, 16, 32), torch.bfloat16)}
+    cpu = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dt)
+           for k, (s, dt) in shapes.items()}
+    card = {k: v.to(dev) for k, v in cpu.items()}
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    wires = []
+    real = dist.all_reduce
+
+    def spy(tensor, *args, **kwargs):
+        wires.append((tensor.device.type, tensor.dtype))
+        return real(tensor, *args, **kwargs)
+
+    e_cpu, e_card = init_error_state(cpu), init_error_state(card)
+    with mock.patch.object(dist, "all_reduce", spy):
+        for _ in range(2):
+            g_cpu, e_cpu_new = compressed_psum(cpu, e_cpu, gloo, n_shards=n_shards)
+            g_card, e_card_new = compressed_psum(card, e_card, mesh111.get_group("pod"),
+                                                 n_shards=n_shards)
+            for k in cpu:
+                gf = cpu[k].float() + e_cpu[k]
+                scale = gf.abs().max() / 127.0 + 1e-12
+                t = (gf / scale).abs()
+                fine = (torch.abs(t - torch.floor(t) - 0.5) >= 2e-5)
+                assert g_card[k].dtype == cpu[k].dtype
+                torch.testing.assert_close(g_card[k].cpu()[fine], g_cpu[k][fine], atol=0, rtol=0)
+                torch.testing.assert_close(e_card_new[k].cpu()[fine], e_cpu_new[k][fine],
+                                           atol=1e-7, rtol=0)
+            e_cpu, e_card = e_cpu_new, e_card_new
+    want = torch.int8 if n_shards else torch.int32
+    for device in ("cpu", "cuda"):
+        seen = [d for t, d in wires if t == device]
+        assert seen == [torch.float32, want, want, want] * 2
+
+
+def test_pipeline_on_card_equals_the_cpu(dev, mesh111):
+    """``pipeline_apply`` with yi_9b smoke's stack (fp32, the kernel's
+    smallest head_dim 64) as the one stage of the pod axis, 8 rows in 4
+    microbatches: the card (K3, L x 4 launches) against the CPU (the plain
+    version) at fp32's tolerance, and the card bitwise the stack on each
+    microbatch in turn."""
+    from repro_torch.models.transformer import apply_stack_full
+    from repro_torch.training.optimizer import tree_map
+    from repro_torch.training.pipeline import pipeline_apply
+
+    cfg = replace(get_smoke_config("yi_9b"), head_dim=64)
+    m = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    stack_cpu = tree_map(lambda a: a.detach().float(), m.params()["stack"])
+    x_cpu = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (8, 24, cfg.d_model)).astype(np.float32))
+
+    def stage(h, params):
+        pos = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)[None].expand(
+            h.shape[0], -1)
+        return apply_stack_full(h, params, cfg, pos)[0]
+
+    out = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):
+        stack = tree_map(lambda a: a.to(d), stack_cpu)
+        n0 = flash_prefill_cuda.launches
+        with torch.no_grad():
+            out[name] = pipeline_apply(stage, x_cpu.to(d), tree_map(lambda a: a[None], stack),
+                                       mesh=mesh111, axis="pod", n_micro=4)
+            if name == "card":
+                assert flash_prefill_cuda.launches - n0 == cfg.num_layers * 4
+                want = torch.cat([stage(x_cpu[i:i + 2].to(d), stack) for i in range(0, 8, 2)])
+                assert torch.equal(out[name], want)
+    torch.testing.assert_close(out["card"].cpu(), out["cpu"], **TOL[torch.float32])

@@ -1,4 +1,5 @@
-"""Multi-rank scenarios of the port's sharded layer on gloo CPU ranks.
+"""Multi-rank scenarios of the port's sharded layer (training and
+serving), gradient compression and pipeline on gloo CPU ranks.
 
 ``run_ranks(scenario, n, workdir)`` starts ``n`` processes of this file,
 one a rank, joined by a ``FileStore`` under ``workdir`` (no network),
@@ -237,7 +238,122 @@ def scenario_world1(workdir: Path, rank: int) -> dict:
     return out
 
 
-SCENARIOS = {"sharded": scenario_sharded, "world1": scenario_world1}
+def _all_ranks(x: torch.Tensor) -> np.ndarray:
+    """(n, ...) numpy of every rank's ``x`` (an all-gather; every rank calls it)."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.stack(parts).numpy()
+
+
+def _wire_dtypes(fn):
+    """``fn()``'s result and the dtypes of the tensors it handed to
+    ``dist.all_reduce``, in call order."""
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    seen, real = [], dist.all_reduce
+
+    def spy(tensor, *args, **kwargs):
+        seen.append(str(tensor.dtype))
+        return real(tensor, *args, **kwargs)
+
+    with mock.patch.object(dist, "all_reduce", spy):
+        out = fn()
+    return out, seen
+
+
+def scenario_grad_comp(workdir: Path, rank: int) -> dict:
+    """``compressed_psum`` over the default group, rank r holding row r of
+    the (n, ...) gradients: two rounds with error feedback, with and
+    without ``n_shards``. Every rank's ĝ and error state, and the dtypes
+    on the wire."""
+    from repro_torch.training.grad_comp import compressed_psum, init_error_state
+
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    g = {"w": torch.from_numpy(inputs["g"][rank])}
+    out = {}
+    for name, n_shards in (("int32", None), ("int8", inputs["n"])):
+        e, rounds = init_error_state(g), []
+        for _ in range(2):
+            (ghat, e), wire = _wire_dtypes(lambda: compressed_psum(g, e, None, n_shards=n_shards))
+            rounds.append({"ghat": _all_ranks(ghat["w"]), "err": _all_ranks(e["w"]),
+                           "wire": wire})
+        out[name] = rounds
+    return out
+
+
+def scenario_pipeline(workdir: Path, rank: int) -> dict:
+    """``pipeline_apply`` of ``tanh(x @ w)`` over a (n,) ``pod`` mesh,
+    stage weights given whole and as a DTensor sharded over ``pod``; every
+    rank's output."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.training.pipeline import pipeline_apply
+
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    n = len(inputs["ws"])
+    mesh = init_device_mesh("cpu", (n,), mesh_dim_names=("pod",))
+    x, ws = torch.from_numpy(inputs["x"]), torch.from_numpy(inputs["ws"])
+
+    def stage(h, w):
+        return torch.tanh(h @ w)
+
+    out = {}
+    for name, params in (("whole", ws), ("sharded", distribute_tensor(ws, mesh, [Shard(0)]))):
+        y = pipeline_apply(stage, x, params, mesh=mesh, axis="pod", n_micro=inputs["n_micro"])
+        out[name] = _all_ranks(y)
+    return out
+
+
+def scenario_serve(workdir: Path, rank: int) -> dict:
+    """Each case's prefill and teacher-forced decode steps with DTensor
+    parameters, batch and caches on a (2, 2) data/model mesh: the logits
+    of every step in full, the rules, and the caches' placements."""
+    from dataclasses import replace
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import distribute, distribute_model, rules_for, sharding_tree
+    from repro_torch.models import build_model
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding import MeshSharding, logical_to_spec, use_rules
+
+    inputs = torch.load(workdir / "inputs.pt", weights_only=False)
+    mesh = make_host_mesh(model=2, data=2, device_type="cpu")
+    out = {}
+    for name, case in inputs.items():
+        cfg = replace(get_smoke_config(case["arch"]), **case["overrides"])
+        model = build_model(cfg).install(case["params"])
+        tokens, steps = torch.from_numpy(case["tokens"]), case["steps"]
+        B, S = tokens.shape
+        rules = rules_for(cfg, ShapeConfig("t", S + len(steps), B, "decode"), mesh)
+        distribute_model(model, sharding_tree(model.axes(), rules, mesh))
+        rows = MeshSharding(mesh, logical_to_spec(("batch",), rules))
+        with use_rules(rules, mesh), implicit_replication():
+            logits, cache = model.prefill(
+                distribute(tokens, MeshSharding(mesh, logical_to_spec(("batch", "seq"), rules))),
+                cache_len=S + len(steps))
+            seen = [logits.full_tensor().numpy()]
+            for i, tok in enumerate(steps):
+                pos = torch.full((B,), S + i, dtype=torch.int32)
+                logits, cache = model.decode_step(distribute(torch.from_numpy(tok), rows),
+                                                  distribute(pos, rows), cache)
+                seen.append(logits.full_tensor().numpy())
+        out[name] = {"logits": np.stack(seen), "rules": rules,
+                     "cache_placements": sorted({str(tuple(x.placements))
+                                                 for x in _leaves(cache)})}
+    return out
+
+
+SCENARIOS = {"sharded": scenario_sharded, "world1": scenario_world1,
+             "grad_comp": scenario_grad_comp, "pipeline": scenario_pipeline,
+             "serve": scenario_serve}
 
 
 def _rank_main(scenario: str, rank: int, n: int, workdir: str) -> None:
