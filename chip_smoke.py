@@ -200,6 +200,19 @@ before the result line is printed:
     ``repro_torch.launch.grad_sync --arch jamba-v0.1-52b``: int8_ef's
     all-reduce bytes half dense_bf16's and a quarter of dense_f32's plus
     the fp32 maxima;
+40. the RPC plane's asynchronous surface at yi-9b's full width, printed
+    right after phase 16 on its model and prompts: (a) 8 client threads
+    in pod ``pod9`` stream phase 3's prompts from a threaded
+    ``ServeEngine`` in ``pod0`` over the fallback link (staged chunk
+    flights the clients pull): tokens equal phase 16's in-pod streams
+    outside near-ties, K3 48 x 8 and K1 48 x the decode steps, no
+    sandbox violation, every page and seal back; (b) three prompts
+    prefilled (K3) into a pool of pod ``ppod`` hand off as
+    ``attach_remote.future`` calls settled by one ``gather``: K2 4
+    launches a transfer, K1 decodes them, the tokens equal the same
+    prompts' in-pod ``generate_tokens`` outside near-ties; (c) the link's
+    ``stats()`` for both, decode step ms and time to first token against
+    phase 16's in-pod streams, the host ms of the flushes;
 
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
@@ -1391,25 +1404,51 @@ def near_tie(model, prompt, prefix) -> bool:
     return top2[0] - top2[1] <= TOL_BF16["atol"] + TOL_BF16["rtol"] * abs(top2[0])
 
 
-def stream_clients(eng, prompts, max_new, pid0, client_sleep_us=None):
-    """One thread a prompt, each with its own stub (pid ``pid0 + i``),
-    streaming through the engine's ServerLoop thread. ``client_sleep_us``
-    pins the clients' chunk polling to naps of that length (the default
-    policy spins, yielding the GIL). Returns the token lists."""
+def divergences(model, prompts, want, got, what):
+    """Where ``got`` differs from ``want``: the first mismatch of each row
+    must sit at a near-tie of the dense chain."""
+    differ = []
+    for n, (prompt, a, b) in enumerate(zip(prompts, want, got)):
+        if a == b:
+            continue
+        k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None or not near_tie(model, prompt, a[:k]):
+            fail(f"{what} {n} differs at step {k} without a near-tie: {b} vs {a}")
+        differ.append({"row": n, "step": k})
+    return differ
+
+
+def stream_clients(eng, prompts, max_new, pid0, client_sleep_us=None, pod=None,
+                   transport="cxl"):
+    """One thread a prompt, each with its own stub (pid ``pid0 + i``, in
+    ``pod`` when given), streaming from the engine's decode service over
+    ``transport``. ``client_sleep_us`` pins the clients' chunk polling to
+    naps of that length (the default policy spins, yielding the GIL).
+    Returns the token lists and each stream's seconds to its first token,
+    from the barrier that releases all clients together."""
     from repro_torch.core.channel import BusyWaitPolicy
     from repro_torch.serving import DecodeService
 
-    outs, errors = [None] * len(prompts), []
+    outs, first_s, errors = [None] * len(prompts), [None] * len(prompts), []
     barrier = threading.Barrier(len(prompts))
 
     def client(i):
         try:
-            stub = eng.router.stub(eng.endpoint_name, DecodeService, pid=pid0 + i)
+            stub = eng.router.stub(eng.endpoint_name, DecodeService, pid=pid0 + i, pod=pod)
+            if stub.connection.transport != transport:
+                raise RuntimeError(f"stub rode {stub.connection.transport!r}, "
+                                   f"not {transport!r}")
             if client_sleep_us is not None:
                 stub.connection.target.wait_policy = BusyWaitPolicy(
                     fixed_sleep_us=client_sleep_us)
             barrier.wait(timeout=60)
-            outs[i] = list(stub.generate_stream.stream(prompts[i], max_new, timeout=600.0))
+            t0 = time.perf_counter()
+            toks = []
+            for tok in stub.generate_stream.stream(prompts[i], max_new, timeout=600.0):
+                if not toks:
+                    first_s[i] = time.perf_counter() - t0
+                toks.append(tok)
+            outs[i] = toks
         except Exception as e:   # reported below
             errors.append((i, repr(e)))
             barrier.abort()
@@ -1424,7 +1463,7 @@ def stream_clients(eng, prompts, max_new, pid0, client_sleep_us=None):
             fail("a client stream thread did not finish")
     if errors:
         fail(f"client streams failed: {errors}")
-    return outs
+    return outs, first_s
 
 
 def handoff_bytes_for(pages: int) -> int:
@@ -1516,7 +1555,7 @@ def phase_rpc(cfg, model, prompts, submits, phase3_streams, phase3_step_ms, max_
             steps0 = eng.decode_steps
             sync(dev)
             t0 = time.perf_counter()
-            outs = stream_clients(eng, prompts, max_new, pid0, client_sleep_us)
+            outs, first_s = stream_clients(eng, prompts, max_new, pid0, client_sleep_us)
             sync(dev)
             t_streams = time.perf_counter() - t0
             launches[run] = got = read(steps0)
@@ -1525,15 +1564,8 @@ def phase_rpc(cfg, model, prompts, submits, phase3_streams, phase3_step_ms, max_
                      f"expected {L} x {len(prompts)} prefills")
             if eng.oob_events:
                 fail(f"{eng.oob_events} sandbox violations over the ring")
-            differ = []
-            for n, (prompt, a, b) in enumerate(zip(prompts, phase3_streams, outs)):
-                if a == b:
-                    continue
-                k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
-                if k is None or not near_tie(model, prompt, a[:k]):
-                    fail(f"stream {n} over the ring differs from phase 3's at step {k} "
-                         f"without a near-tie: {b} vs {a}")
-                differ.append({"stream": n, "step": k})
+            differ = divergences(model, prompts, phase3_streams, outs,
+                                 "stream over the ring, against phase 3's,")
             full = [(t0, t1) for t0, t1, b in step_log if b == len(prompts)]
             if not full:
                 fail(f"no decode step ran all {len(prompts)} streams together")
@@ -1545,6 +1577,7 @@ def phase_rpc(cfg, model, prompts, submits, phase3_streams, phase3_step_ms, max_
                 # in-process quotient includes its pulls
                 "decode_step_ms_b8": 1e3 * (full[-1][1] - full[0][0]) / len(full),
                 "step_batch_ms_median_b8": 1e3 * float(np.median([b - a for a, b in full])),
+                "ttft_ms": [1e3 * t for t in first_s], "tokens": outs,
             }
         del eng.scheduler.step_batch
 
@@ -1707,6 +1740,218 @@ def phase_rpc(cfg, model, prompts, submits, phase3_streams, phase3_step_ms, max_
         f"{c['moved_bytes']} + {COMPLETION_WORD_BYTES} bytes a transfer on the link; "
         f"handoff {c['handoff_ms']:.2f} ms = {k2_text} (same pod "
         f"{c['same_pod_handoff_ms']:.2f} ms); tokens equal the same-pod generation exactly")
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase 40: the RPC plane's asynchronous surface across pods (fallback link)
+# ---------------------------------------------------------------------------
+def link_totals(router) -> dict:
+    """Every pod pair's LinkPool counters, summed."""
+    out = {}
+    for pool in router._link_pools.values():
+        for k, v in pool.stats().items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_cross_pod(cfg, model, prompts, rpc, max_new, card, n=40):
+    """(a) eight client threads in pod ``pod9`` stream from a threaded
+    engine in ``pod0`` over the fallback link; (b) three ``attach_remote``
+    futures from pod ``ppod`` settled by one ``gather``; (c) the link's
+    counters, step and first-token times, the flushes' host time."""
+    from repro_torch.core.fallback import LinkPool
+    from repro_torch.core.marshal import gather
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.scope_copy import gather_pages, scatter_pages
+    from repro_torch.serving import DecodeService, PagedKVPool, PoolConfig, PoolPages, \
+        ServeEngine, prefill_kv
+
+    dev, L = model.device, cfg.num_layers
+    counters = (paged_attention, flash_prefill_cuda, gather_pages, scatter_pages)
+    in_pod = rpc["streams"]["spinning_clients"]
+
+    def zero():
+        for c in counters:
+            c.launches = 0
+
+    def read(steps0):
+        got = {"paged_attention": paged_attention.launches,
+               "flash_prefill": flash_prefill_cuda.launches,
+               "gather_pages": gather_pages.launches,
+               "scatter_pages": scatter_pages.launches,
+               "decode_steps": eng.decode_steps - steps0}
+        if got["paged_attention"] != L * got["decode_steps"]:
+            fail(f"phase {n}: paged_attention launched {got['paged_attention']} times, "
+                 f"expected {L} x {got['decode_steps']} decode steps")
+        return got
+
+    def leaks(what):
+        if eng.pool.heap.free_pages() != free0 or eng.pool.stats()["sealed_pages"]:
+            fail(f"phase {n} {what}: pages or seals leaked: {eng.pool.stats()}")
+        held = [(k, int(l.replica[0].perm.sum()))
+                for k, pool in eng.router._link_pools.items() for l in pool.links
+                if l.replica[0].perm.any()]
+        if held:
+            fail(f"phase {n} {what}: link pages still sealed: {held}")
+
+    # the flushes' host time: every LinkPool stripe flush, on the host clock
+    flush_s = []
+    flush_stripe = LinkPool.flush_stripe
+
+    def timed_flush(self, idx):
+        t0 = time.perf_counter()
+        try:
+            return flush_stripe(self, idx)
+        finally:
+            flush_s.append(time.perf_counter() - t0)
+
+    pc = PoolConfig(num_pages=512, page_tokens=16, max_pages_per_seq=64)
+    eng = ServeEngine(cfg, model, pc, max_active=8, serve_threaded=True, pod="pod0",
+                      device=dev)
+    thread = eng.serve_loop._thread
+    free0 = eng.pool.heap.free_pages()
+    info, launches = {}, {}
+    LinkPool.flush_stripe = timed_flush
+    try:
+        # (a) cross-pod streams: each client's pulls run the prefill (K3)
+        # and the batched steps (K1) of the one shared StreamScheduler
+        step_log = []
+        step_batch = eng.scheduler.step_batch
+
+        def logged_step():
+            t0 = time.perf_counter()
+            b = step_batch()
+            step_log.append((t0, time.perf_counter(), b))
+            return b
+
+        eng.scheduler.step_batch = logged_step
+        zero()
+        steps0 = eng.decode_steps
+        sync(dev)
+        t0 = time.perf_counter()
+        outs, first_s = stream_clients(eng, prompts, max_new, 60, pod="pod9",
+                                       transport="fallback")
+        sync(dev)
+        wall = time.perf_counter() - t0
+        del eng.scheduler.step_batch
+        launches["streams"] = got = read(steps0)
+        if got["flash_prefill"] != L * len(prompts):
+            fail(f"phase {n} (a): flash_prefill launched {got['flash_prefill']} times, "
+                 f"expected {L} x {len(prompts)}")
+        if eng.oob_events:
+            fail(f"phase {n} (a): {eng.oob_events} sandbox violations")
+        if any(len(o) != max_new for o in outs):
+            fail(f"phase {n} (a): a stream came back short: {[len(o) for o in outs]}")
+        differ = divergences(model, prompts, in_pod["tokens"], outs, "cross-pod stream")
+        full = [(a, b) for a, b, bs in step_log if bs == len(prompts)]
+        if not full:
+            fail(f"phase {n} (a): no decode step ran all {len(prompts)} streams together")
+        leaks("(a)")
+        info["streams"] = {
+            "wall_s": wall, "decode_steps": got["decode_steps"], "steps_at_b8": len(full),
+            "near_tie_divergences": differ,
+            "decode_step_ms_b8": 1e3 * (full[-1][1] - full[0][0]) / len(full),
+            "step_batch_ms_median_b8": 1e3 * float(np.median([b - a for a, b in full])),
+            "ttft_ms": [1e3 * t for t in first_s],
+            "in_pod_ttft_ms": in_pod["ttft_ms"],
+            "in_pod_decode_step_ms_b8": in_pod["decode_step_ms_b8"],
+            "link": link_totals(eng.router), "tokens": outs,
+        }
+
+        # (b) three prefills in pod ``ppod``, posted as attach_remote futures
+        # on one stub and settled by one gather: one staged flight, the KV
+        # moved by K2 when each future resolves its PoolPages argument
+        picks = prompts[:3]
+        zero()
+        steps0 = eng.decode_steps
+        gens = [eng.generate_tokens(p, max_new) for p in picks]
+        want = [[] for _ in picks]
+        for _ in range(max_new):                  # in lockstep: one batch
+            for w, g in zip(want, gens):
+                w.append(next(g))
+        for g in gens:
+            if next(g, None) is not None:
+                fail(f"phase {n} (b): an in-pod stream ran past {max_new} tokens")
+        info["in_pod_launches"] = read(steps0)    # not across pods: a path of its own
+        src = PagedKVPool(eng.orch, cfg, pc, 21, pod="ppod", device=dev)
+        far = eng.router.stub(eng.endpoint_name, DecodeService, pid=21, pod="ppod")
+        if far.connection.transport != "fallback":
+            fail(f"phase {n} (b): the stub rode {far.connection.transport!r}")
+        target = far.connection.target
+        link0 = target.stats()
+        zero()
+        steps0 = eng.decode_steps
+        futs, src_pages, k2 = [], [], []
+        flush_s.clear()
+        t0 = time.perf_counter()
+        for i, prompt in enumerate(picks):
+            pages = src.alloc_seq(len(prompt) + max_new, 21)
+            toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+            logits, k, v = prefill_kv(model, toks)
+            src.write_prefill(k[:, 0], v[:, 0], pages, len(prompt))
+            first = int(logits[0].argmax())
+            g0 = gather_pages.launches + scatter_pages.launches
+            futs.append(far.attach_remote.future(9400 + i, prompt, first, max_new,
+                                                 PoolPages(src, pages), timeout=600.0))
+            k2.append(gather_pages.launches + scatter_pages.launches - g0)
+            src_pages.append(pages)
+        staged = len(target._flight)
+        results = gather(futs, timeout=600.0)
+        sync(dev)
+        t_handoffs = time.perf_counter() - t0
+        eng.run_until_drained(timeout=600)
+        got_b = [eng.result(9400 + i) for i in range(len(picks))]
+        launches["attach_remote_futures"] = got = read(steps0)
+        if results != [0] * len(picks) or staged != len(picks):
+            fail(f"phase {n} (b): gather gave {results}, {staged} staged in the flight")
+        if k2 != [4] * len(picks):
+            fail(f"phase {n} (b): K2 launches by transfer {k2}, expected 4 each")
+        if got["flash_prefill"] != L * len(picks):
+            fail(f"phase {n} (b): flash_prefill launched {got['flash_prefill']} times")
+        if not got["decode_steps"] or any(len(o) != max_new for o in got_b):
+            fail(f"phase {n} (b): the handed-off requests decoded {got_b}")
+        differ_b = divergences(model, picks, want, got_b, "cross-pod handoff")
+        for pages in src_pages:
+            src.free_seq(pages)
+        if eng.oob_events:
+            fail(f"phase {n} (b): {eng.oob_events} sandbox violations")
+        leaks("(b)")
+        st = target.stats()
+        info["futures"] = {
+            "handoffs_ms": 1e3 * t_handoffs, "flushes": len(flush_s),
+            "flush_host_ms": [1e3 * t for t in flush_s], "k2_launches": k2,
+            "link": {k: st[k] - link0[k] for k in st}, "near_tie_divergences": differ_b,
+            "decode_steps": got["decode_steps"],
+            "moved_bytes": src.byref_bytes_out,
+        }
+        if info["futures"]["link"]["window_seal_flushes"] != 1 or len(flush_s) != 1:
+            fail(f"phase {n} (b): {len(flush_s)} flushes, link {info['futures']['link']}")
+    finally:
+        LinkPool.flush_stripe = flush_stripe
+        eng.shutdown()
+    if thread.is_alive():
+        fail(f"phase {n}: the serving thread is still alive after shutdown()")
+    info["launches"] = launches
+    a, b = info["streams"], info["futures"]
+    log(f"phase {n} cross-pod streams on {card}: 8 client threads in pod9 streamed "
+        f"{len(prompts)} x {max_new} tokens over the fallback link in {a['decode_steps']} "
+        f"decode steps ({a['steps_at_b8']} at B=8), paged_attention "
+        f"{launches['streams']['paged_attention']} = {L} x {a['decode_steps']}, "
+        f"flash_prefill {launches['streams']['flash_prefill']} = {L} x {len(prompts)}, oob 0, "
+        f"{len(a['near_tie_divergences'])} streams differ from phase 16's, each at a "
+        f"near-tie; decode step {a['decode_step_ms_b8']:.2f} ms at B=8 (step_batch "
+        f"{a['step_batch_ms_median_b8']:.2f} ms) vs in pod {a['in_pod_decode_step_ms_b8']:.2f}"
+        f" ms; time to first token median {np.median(a['ttft_ms']):.1f} ms (max "
+        f"{max(a['ttft_ms']):.1f}) vs in pod {np.median(a['in_pod_ttft_ms']):.1f} ms (max "
+        f"{max(a['in_pod_ttft_ms']):.1f}); link {a['link']}")
+    log(f"phase {n} cross-pod attach_remote futures on {card}: 3 futures in one flight, "
+        f"gather -> [0, 0, 0], K2 {b['k2_launches']} launches by transfer "
+        f"({b['moved_bytes']} bytes), K1 decoded them in {b['decode_steps']} steps, "
+        f"{len(b['near_tie_divergences'])} differ from in-pod generate_tokens, each at a "
+        f"near-tie; handoffs {b['handoffs_ms']:.2f} ms, {b['flushes']} flush of "
+        f"{b['flush_host_ms'][0]:.3f} ms on the host; link {b['link']}")
     return info
 
 
@@ -3704,6 +3949,7 @@ def main() -> int:
                for n in (16, 64, 112)]
     rpc = phase_rpc(cfg, model, prompts, submits, outputs[: len(prompts)],
                     serve["decode_step_ms_b8"], MAX_NEW, card)
+    cross_pod = phase_cross_pod(cfg, model, prompts, rpc, MAX_NEW, card)
     del model
     torch.cuda.empty_cache()
     src_pool, src_pages, transfer = phase_transfer(cfg, gen)
@@ -3837,6 +4083,11 @@ def main() -> int:
         "yi-9b over the RPC plane": {
             name: sum(part.get(name, 0) for part in rpc["launches"].values())
             for name in sources},
+        "yi-9b across pods (phase 40)": {
+            name: sum(part.get(name, 0) for part in cross_pod["launches"].values())
+            for name in sources},
+        "yi-9b in pod, phase 40's reference": {
+            name: cross_pod["in_pod_launches"].get(name, 0) for name in sources},
         "mamba2-1.3b": {"ssd_intra_chunk": m_serve["launches"]},
         "gemma3-12b": {"flash_prefill": g_serve["launches"]},
         **{name: {"paged_attention": f["serve"]["launches"],
@@ -3874,6 +4125,7 @@ def main() -> int:
               "ssd_kernel": ssd, "mamba_serve": m_serve, "mamba_teacher_forced": m_tf,
               "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,
               "gemma_teacher_forced": g_tf, "gemma_times": g_times, "rpc": rpc,
+              "cross_pod": cross_pod,
               "new_layouts": new, "families": fams, "family_times": fam_times,
               "moe_kernels": moe_k3, "moe": moes, "jamba_kernels": j_kernels, "jamba": jamba,
               "whisper_kernels": w_kernels, "whisper": whisper, "serve_cli": cli,

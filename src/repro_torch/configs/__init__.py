@@ -1,16 +1,27 @@
-"""Architecture configs ported so far.
+"""The RPC plane's runtime config and the architecture configs.
 
-Each module defines ``CONFIG`` (the published config) and ``smoke()``
-(a reduced same-family variant for CPU tests). The registry holds only
-the architectures the port serves.
+``ReproConfig``/``global_config`` hold the tuning knobs (admission,
+streaming, the fallback transport) that the RPC plane's constructors
+read their defaults from.
+
+Each architecture module defines ``CONFIG`` (the published config) and
+``smoke()`` (a reduced same-family variant for CPU tests). The registry
+holds only the architectures the port serves; the model machinery is
+imported lazily, so ``repro_torch.core`` loads this package without it.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import TYPE_CHECKING, Dict, List
 
-from ..models.config import ModelConfig
+from .global_config import ReproConfig, global_config
+
+if TYPE_CHECKING:  # typing only
+    from ..models.config import ModelConfig
+
+__all__ = ["ReproConfig", "global_config", "ARCH_IDS", "ALIASES",
+           "get_config", "get_smoke_config"]
 
 ARCH_IDS: List[str] = ["yi_9b", "mamba2_1p3b", "gemma3_12b", "olmo_1b",
                         "yi_6b", "qwen2_vl_7b", "granite_moe_1b_a400m",

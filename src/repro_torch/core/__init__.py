@@ -1,33 +1,50 @@
 """Host-side RPCool machinery the serving plane runs on: heaps, seals,
 sandboxes, leases and quotas, and the RPC plane over them (descriptor
-rings, typed marshalling, services, the cluster router and the fallback
-transport). NumPy and plain Python: the rings, scopes and descriptor
-tables are host memory standing in for the CXL region.
+rings, typed marshalling, futures and streams, services, the cluster
+router and the fallback transport). NumPy and plain Python: the rings,
+scopes and descriptor tables are host memory standing in for the CXL
+region.
 
-Layers (bottom-up), each the reference package's module of the same name
-trimmed to what the serving engine calls:
+Layers (bottom-up), each the reference package's module of the same name:
   addr        packed 64-bit global addresses
   heap        SharedHeap: paged memory + permissions + epochs
   scope       contiguous page ranges bounding one RPC's arguments
-  seal        Fig. 8 seal()/release() protocol + batched release
+  seal        Fig. 8 seal()/release() protocol + batched and window release
   sandbox     MPK-analogue pointer confinement, 14 cached sandboxes
-  containers  heap-resident pointer-rich objects
-  serial      the by-value wire format of the fallback route
-  orchestrator heap ids, leases, quotas, pods, channel registry
-  channel     channels/connections/descriptor rings, ServerLoop
-  marshal     typed zero-copy invoke, streaming reply chains
-  service     @service/@method declarations and client stubs
-  fallback    two-node software-coherent link (RDMA analogue)
+  containers  heap-resident pointer-rich objects, deep_copy
+  serial      the by-value wire format, and the SerialChannel baseline
+  orchestrator heap ids, leases, page quotas, pods, channel registry
+  channel     channels/connections/descriptor rings, serve loops
+              (serve_once/serve_many/listen), ServerLoop
+  marshal     typed zero-copy invoke, GraphRef/build_graph, futures and
+              gather, streaming reply chains, the serializing baseline
+  service     @service/@method declarations, client stubs (sync, future,
+              stream), the interceptors
+  fallback    two-node software-coherent link (RDMA analogue): staged
+              flights, link streams, one-sided put/get, LinkPool stripes
   router      ClusterRouter: endpoint names → CXL ring or fallback
+Still the reference's alone: router replicas, leases and failover,
+migration, balanced and wildcard connections, lifecycle, snapshot,
+chaos, and the ShmCheck sanitizer.
 """
 
-from . import addr, containers, serial
+from . import addr, containers, marshal, serial
+from ..configs.global_config import ReproConfig, global_config
 from .channel import (
+    E_DEADLINE,
+    E_OVERLOAD,
+    F_BYVAL,
+    F_DEADLINE,
+    F_SANDBOXED,
+    F_SEALED,
+    F_STREAM,
+    F_TYPED,
+    RING_DTYPE,
+    RPC,
     BusyWaitPolicy,
     Channel,
     Connection,
     DescriptorRing,
-    RPC,
     RpcError,
     ServerCtx,
     ServerLoop,
@@ -40,25 +57,40 @@ from .errors import (
     Overloaded,
     OwnershipMiss,
     QuotaExceeded,
+    RPCoolError,
     SandboxViolation,
     SealedPageError,
     SealViolation,
     WaitTimeout,
 )
-from .fallback import DSMLink, FallbackConnection, LinkPool
+from .fallback import DSMLink, DSMNode, FallbackConnection, LinkPool
 from .heap import PERM_SEALED, SharedHeap
-from .marshal import ArgView, RpcStream, ServerStream
-from .orchestrator import Orchestrator, ReproConfig
+from .marshal import (
+    ArgView,
+    FallbackRpcFuture,
+    FallbackRpcStream,
+    GraphRef,
+    RpcFuture,
+    RpcStream,
+    ServerStream,
+    build_graph,
+    gather,
+)
+from .orchestrator import Lease, Orchestrator
 from .router import ClusterRouter, RoutedConnection
-from .sandbox import Sandbox, SandboxManager
+from .sandbox import MAX_CACHED, Sandbox, SandboxManager
 from .scope import Scope, ScopePool, create_scope
-from .seal import SealManager
+from .seal import S_COMPLETE, S_RELEASED, S_SEALED, SealManager
+from .serial import SerialChannel
 from .service import (
     AdmissionInterceptor,
     DeadlineEnforcer,
     Interceptor,
+    MethodSpec,
+    RetryInterceptor,
     ServiceDef,
     ServiceStub,
+    StatsInterceptor,
     StubMethod,
     method,
     service,
@@ -67,20 +99,26 @@ from .service import (
 )
 
 __all__ = [
-    "addr", "containers", "serial",
-    "BusyWaitPolicy", "Channel", "Connection", "DescriptorRing", "RPC",
+    "addr", "containers", "marshal", "serial",
+    "ReproConfig", "global_config",
+    "E_DEADLINE", "E_OVERLOAD", "F_BYVAL", "F_DEADLINE", "F_SANDBOXED",
+    "F_SEALED", "F_STREAM", "F_TYPED", "RING_DTYPE", "RPC",
+    "BusyWaitPolicy", "Channel", "Connection", "DescriptorRing",
     "RpcError", "ServerCtx", "ServerLoop",
     "AllocationError", "ChannelError", "DeadlineExceeded", "InvalidPointer",
-    "Overloaded", "OwnershipMiss", "QuotaExceeded", "SandboxViolation",
-    "SealedPageError", "SealViolation", "WaitTimeout",
-    "DSMLink", "FallbackConnection", "LinkPool",
+    "Overloaded", "OwnershipMiss", "QuotaExceeded", "RPCoolError",
+    "SandboxViolation", "SealedPageError", "SealViolation", "WaitTimeout",
+    "DSMLink", "DSMNode", "FallbackConnection", "LinkPool",
     "PERM_SEALED", "SharedHeap",
-    "ArgView", "RpcStream", "ServerStream",
-    "Orchestrator", "ReproConfig",
+    "ArgView", "FallbackRpcFuture", "FallbackRpcStream", "GraphRef",
+    "RpcFuture", "RpcStream", "ServerStream", "build_graph", "gather",
+    "Lease", "Orchestrator",
     "ClusterRouter", "RoutedConnection",
-    "Sandbox", "SandboxManager",
+    "MAX_CACHED", "Sandbox", "SandboxManager",
     "Scope", "ScopePool", "create_scope",
-    "SealManager",
-    "AdmissionInterceptor", "DeadlineEnforcer", "Interceptor", "ServiceDef", "ServiceStub",
+    "S_COMPLETE", "S_RELEASED", "S_SEALED", "SealManager",
+    "SerialChannel",
+    "AdmissionInterceptor", "DeadlineEnforcer", "Interceptor", "MethodSpec",
+    "RetryInterceptor", "ServiceDef", "ServiceStub", "StatsInterceptor",
     "StubMethod", "method", "service", "service_def", "stable_fn_id",
 ]

@@ -20,10 +20,10 @@ would only add cost without adding safety — same reasoning as the paper
 running the descriptor buffer outside the seal machinery.
 
 Threading model: one client per connection (the paper's model — each
-client gets its own connection+ring); a ``ServerLoop`` thread serves every
-ring of its channels, sweeping each ring's head state with a single
-vectorized compare, or a client runs the server half inline
-(``call_inline``).
+client gets its own connection+ring); the server may serve many
+connections from one listen loop. ``serve_once`` sweeps every ring's head
+state with a single vectorized compare; ``serve_many`` drains every ready
+slot found until the channel is idle.
 """
 
 from __future__ import annotations
@@ -38,10 +38,11 @@ from . import addr as gaddr
 from .errors import ChannelError, DeadlineExceeded, Overloaded, \
     SandboxViolation, SealViolation, WaitTimeout
 from .heap import SharedHeap
-from .orchestrator import Orchestrator, ReproConfig
+from .orchestrator import Orchestrator
 from .sandbox import SandboxManager
-from .scope import Scope, ScopePool, create_scope
+from .scope import Scope, ScopePool, create_scope, implicit_scope
 from .seal import SealManager
+from ..configs.global_config import ReproConfig, global_config
 
 # Lazily-bound marshalling module (core/marshal.py imports this module for
 # the flag constants, so the import direction must stay marshal → channel;
@@ -59,7 +60,8 @@ def _get_marshal():
 # Request-ring slot layout: seq, fn, flags, arg, seal_idx, ret, state,
 # status, scope_start, scope_count (the receiver sandboxes exactly the
 # scope the sender used — §5.2). Little-endian, no padding: the struct
-# format "<QIIQQQIIII" (56 bytes), the reference package's layout.
+# format "<QIIQQQIIII" (56 bytes), the reference package's layout, so a
+# ring page migrated by the fallback transport reads the same either way.
 RING_DTYPE = np.dtype([
     ("seq", "<u8"),
     ("fn", "<u4"),
@@ -164,6 +166,43 @@ class BusyWaitPolicy:
         time.sleep(self.delay_s())
 
 
+def _serve_event_loop(serve_pending: Callable[[], int],
+                      sweep_once: Callable[[], int],
+                      channels, policy: BusyWaitPolicy,
+                      stop: threading.Event, ev: threading.Event) -> None:
+    """The one §5.8 busy-wait/doorbell protocol, shared by
+    ``Channel.listen`` (one channel) and ``ServerLoop.run`` (many).
+
+    The policy-prescribed back-off is spent blocked on the doorbell event
+    rather than in a blind nap: a post that lands while the server is
+    backing off wakes it immediately, so the high-load 150µs budget
+    bounds the wait instead of gating every batch. The clear → park →
+    re-sweep → wait sequence is race-sensitive (a post may land between
+    the clear and the park flag), so it lives here exactly once.
+    """
+    while not stop.is_set():
+        n = serve_pending()
+        policy.record(n > 0)
+        if n == 0:
+            delay = policy.delay_s()
+            if delay <= 0:
+                time.sleep(0)  # spin, but yield the GIL
+                continue
+            ev.clear()
+            for ch in channels:
+                ch._parked = True
+            # re-check after parking: a post may have raced the clear
+            # (posts from here on see _parked and ring the doorbell)
+            if sweep_once():
+                for ch in channels:
+                    ch._parked = False
+                policy.record(True)
+                continue
+            ev.wait(delay)
+            for ch in channels:
+                ch._parked = False
+
+
 class DescriptorRing:
     """SPSC descriptor ring: a structured-dtype view over heap bytes.
 
@@ -247,10 +286,11 @@ class RpcError(ChannelError):
 
 
 class _Pending:
-    """Client-side record of one tracked async token (a streaming call;
-    raw ``call_async`` tokens stay registry-free). Exists so ``close()``
-    can drain a pending stream's scope exactly once and the reaper can
-    recycle the reply of a cancelled token when its completion lands."""
+    """Client-side record of one tracked async token (``invoke_async``
+    futures; raw ``call_async`` tokens stay registry-free so the no-op
+    hot path pays nothing). Exists so ``close()`` can drain a pending
+    future's scopes exactly once and the reaper can recycle the reply
+    of a cancelled/abandoned token when its completion lands."""
 
     __slots__ = ("sealed", "seal_idx", "typed", "cleanup")
 
@@ -332,11 +372,13 @@ class Connection:
         self.seals = SealManager(heap)
         self.sandboxes = SandboxManager(heap)
         self._next_seq = 1
+        self._scope_pool: Optional[ScopePool] = None
         self.closed = False
         self.last_seal_idx = 0  # seal idx of the most recent sealed call
         self._ctx: Optional["ServerCtx"] = ServerCtx(channel, self, 0)
-        # typed data plane (core/marshal.py): pooled argument scopes and
-        # server reply scopes recycled through the client
+        # typed data plane (core/marshal.py): pooled argument scopes,
+        # server reply scopes recycled through the client, and the
+        # implicit-allocation scope backing scope-less new_bytes calls.
         self._marshal_pool: Optional[ScopePool] = None
         self._reply_free: List[Scope] = []
         self._reply_live: Dict[int, Scope] = {}
@@ -344,16 +386,20 @@ class Connection:
         # generation counter that tags every chunk of a stream
         self._chain_free: List[Scope] = []
         self._stream_gen = 0
-        # async-token bookkeeping: every tracked token (a stream) is
-        # drained by close(), and abandoned tokens (cancel, lapsed
-        # deadline) are reaped once their completion lands
+        self._implicit: Optional[Scope] = None
+        self._implicit_scopes: List[Scope] = []
+        # pipelined-futures bookkeeping: every async token is tracked so
+        # close() fails its waiter instead of stranding it, and abandoned
+        # tokens (timeout/cancel) are reaped once their reply lands
         self._pending_async: Dict[int, _Pending] = {}
         self._abandoned: Dict[int, _Pending] = {}
         # §5.8 back-off for client-side waits (shared across this
-        # connection's in-flight calls — one poll duty cycle). Public:
+        # connection's in-flight futures — one poll duty cycle). Public:
         # assign a BusyWaitPolicy(fixed_sleep_us=...) to pin the client
-        # poll cadence, exactly like passing a policy to a ServerLoop.
-        cfg = ReproConfig
+        # poll cadence, exactly like passing a policy to listen().
+        # Defaults come from the channel's ReproConfig; assigning the
+        # attributes afterwards still overrides per connection.
+        cfg = getattr(channel, "config", None) or global_config
         self.wait_policy = BusyWaitPolicy(
             fixed_sleep_us=cfg.wait_fixed_sleep_us, window=cfg.wait_window)
         # bounded admission queue for a full ring (§5.4 backpressure):
@@ -374,6 +420,26 @@ class Connection:
     # -- client-side object construction --------------------------------
     def create_scope(self, size_bytes: int) -> Scope:
         return create_scope(self.heap, size_bytes, owner=self.client_pid)
+
+    def scope_pool(self, scope_pages: int = 1) -> ScopePool:
+        if self._scope_pool is None or \
+                self._scope_pool.scope_pages != scope_pages:
+            self._scope_pool = ScopePool(self.heap, scope_pages,
+                                         owner=self.client_pid,
+                                         seals=self.seals)
+        return self._scope_pool
+
+    def new_bytes(self, data: bytes, scope: Optional[Scope] = None) -> int:
+        """``conn->new_<T>(...)`` — allocate an object in the heap/scope.
+
+        With no explicit scope the object goes into a connection-owned
+        implicit scope that is tracked and returned to the heap when the
+        connection closes. Consecutive scope-less allocations share the
+        current implicit scope until it fills.
+        """
+        if scope is None:
+            scope = implicit_scope(self, len(data), self.heap.page_size)
+        return scope.write_bytes(data, pid=self.client_pid)
 
     # -- the RPC itself ---------------------------------------------------
     def call(
@@ -460,7 +526,7 @@ class Connection:
                      cleanup: Optional[Callable[[], None]] = None
                      ) -> "_Pending":
         """Register close()/reap bookkeeping for an async token (the
-        streaming layer calls this; raw tokens stay registry-free)."""
+        futures layer calls this; raw tokens stay registry-free)."""
         p = _Pending(sealed, token[1], typed, cleanup)
         self._pending_async[token[0]] = p
         return p
@@ -469,14 +535,23 @@ class Connection:
     def invoke(self, fn_id: int, *args, **kw):
         """``conn->invoke(fn_id, *values)`` — typed zero-copy RPC.
 
-        Arguments (arbitrary nested Python values) are materialized ONCE
-        as a ``containers`` graph in a pooled scope and passed as a
-        single GlobalAddr — no serialization. The reply is marshalled back the
+        Arguments (arbitrary nested Python values, or pre-built
+        ``GraphRef`` container graphs) are materialized ONCE as a
+        ``containers`` graph in a pooled scope and passed as a single
+        GlobalAddr — no serialization. The reply is marshalled back the
         same way. Handlers must be registered with ``Channel.add_typed``.
         Keywords: ``sealed``, ``sandboxed``, ``batch_release``,
         ``timeout``, ``inline`` (use the two-core inline data path).
         """
         return _get_marshal().invoke_cxl(self, fn_id, args, **kw)
+
+    def invoke_async(self, fn_id: int, *args, **kw):
+        """Pipelined typed invoke: post now, settle later. Returns an
+        ``RpcFuture``; N futures may be in flight on one connection and
+        complete out of order (``marshal.gather`` drains them as they
+        land). Keywords: ``sealed``, ``sandboxed``, ``deadline``
+        (seconds of budget, propagated into the descriptor), ``timeout``."""
+        return _get_marshal().invoke_async_cxl(self, fn_id, args, **kw)
 
     def invoke_stream(self, fn_id: int, *args, **kw):
         """Streaming typed invoke: the handler is a generator and every
@@ -489,6 +564,26 @@ class Connection:
         server stream from the consuming thread; the two-core analogue
         for single-threaded setups)."""
         return _get_marshal().invoke_stream_cxl(self, fn_id, args, **kw)
+
+    def invoke_serialized(self, fn_id: int, *args, **kw):
+        """The Fig. 11 serializing baseline over the SAME descriptor ring:
+        args are ``serial.encode``d, copied into a scope, decoded by the
+        receiver — everything the typed pointer path avoids."""
+        return _get_marshal().invoke_serialized(self, fn_id, args, **kw)
+
+    def serve(self, instance, interceptors=()):
+        """Register every method of a ``@service``-decorated instance as
+        a typed handler on this connection's channel (see
+        core/service.py). The raw integer ``add``/``add_typed`` API stays
+        as the low-level escape hatch."""
+        return self.channel.serve(instance, interceptors)
+
+    def poll(self, token: Tuple[int, int]) -> bool:
+        """Non-blocking completion probe for an async token (one word
+        load). True once the result may be consumed with ``wait``."""
+        ring = self.ring
+        return ring._words[ring._w0 + token[0] * _SLOT_WORDS + _W_STATE] \
+            & _M32 >= R_DONE
 
     def wait(self, token: Tuple[int, int], sealed: bool = False,
              batch_release: bool = False, timeout: float = 10.0) -> int:
@@ -532,10 +627,19 @@ class Connection:
             self._pending_async.pop(slot, None)
         return self._complete(slot, sealed, seal_idx, batch_release)
 
+    def end_seal_window(self) -> int:
+        """Close a ``batch_release`` pipeline window: flush every queued
+        seal release in ONE permission epoch (§5.3 composed with
+        pipelining). Returns the number of releases applied."""
+        n = self.seals.pending_releases()
+        if n:
+            self.seals.flush()
+        return n
+
     # -- abandoned-token reaping (timeout / cancel hygiene) ----------------
     def _abandon(self, token: Tuple[int, int], pending: "_Pending") -> None:
-        """Give up on an async token (stream cancelled or its deadline
-        lapsed): the slot cannot be un-posted from an SPSC ring, so
+        """Give up on an async token (future cancelled or its waiter timed
+        out for good): the slot cannot be un-posted from an SPSC ring, so
         it is parked and reaped — consumed, reply scope recycled, seal
         released — as soon as the server's completion lands."""
         slot = token[0]
@@ -645,7 +749,7 @@ class Connection:
     def close(self) -> None:
         if not self.closed:
             self.closed = True
-            # drain every tracked in-flight stream FIRST: ``closed`` makes
+            # drain every tracked in-flight future FIRST: ``closed`` makes
             # a later wait()/result() raise ChannelError instead of
             # spinning on a torn-down ring, and each token's marshal
             # scope is drained exactly once (the cleanup callback is
@@ -658,8 +762,13 @@ class Connection:
                     p.cleanup = None
             self._abandoned.clear()
             # return every connection-owned page range to the heap: the
-            # marshal scope pool and any reply scopes the server handed
-            # back through this client
+            # implicit new_bytes scopes, the marshal scope pool, and any
+            # reply scopes the server handed back through this client.
+            for s in self._implicit_scopes:
+                if s.live:
+                    s.destroy()
+            self._implicit_scopes.clear()
+            self._implicit = None
             if self._marshal_pool is not None:
                 self._marshal_pool.drain()
                 self._marshal_pool = None
@@ -672,6 +781,11 @@ class Connection:
                 if s.live:
                     s.destroy()
             self._reply_live.clear()
+            # the user-facing scope_pool() pool is connection-owned too:
+            # its pre-created pages must not outlive the connection
+            if self._scope_pool is not None:
+                self._scope_pool.drain()
+                self._scope_pool = None
             self.channel._drop_connection(self)
 
 
@@ -679,19 +793,22 @@ class Channel:
     """A named RPC endpoint. ``Channel.open`` ≈ binding a port (§4.2)."""
 
     def __init__(self, orch: Orchestrator, name: str, server_pid: int,
-                 heap_pages: int = 4096, page_size: int = 4096):
+                 heap_pages: int = 4096, page_size: int = 4096,
+                 config: Optional[ReproConfig] = None):
         self.orch = orch
         self.name = name
+        # tuning defaults for this channel and its connections; explicit
+        # kwargs / attribute assignment still override per instance
+        self.config = config or global_config
         self.server_pid = server_pid
         self.heap_pages = heap_pages
         self.page_size = page_size
         self.functions: Dict[int, Callable[["ServerCtx", int], int]] = {}
         self.connections: List[Connection] = []
-        # the doorbell: a post rings it only while the serving ServerLoop
-        # is parked on it (``_parked``); posts during a sweep are found by
-        # the next sweep
         self._event = threading.Event()
-        self._parked = False
+        self._parked = False  # True only while listen waits on the doorbell
+        self._stop = threading.Event()
+        self._sweep_scratch: Optional[np.ndarray] = None
         self._conn_version = 0  # bumped on accept/drop; ServerLoop caches
         # active streaming replies (ServerStream, core/marshal.py): the
         # serve loops advance every registered generator a bounded number
@@ -703,12 +820,12 @@ class Channel:
         # admit(client_pid, fn_id) -> Optional[retry_after_us] / release()
         # plugs in.
         self.admission = None
-        # per-pump chunk cap applied to every stream this channel
-        # registers (None = the client's full window). A transport whose
-        # stream generators share one scheduler (continuous batching)
-        # sets 1 so all live streams advance in lockstep, one batched
-        # step per sweep.
-        self.stream_pump_burst: Optional[int] = None
+        # push-mode per-pump chunk cap applied to every stream this
+        # channel registers (None = the client's full window). A serving
+        # transport whose stream generators share one scheduler (e.g.
+        # continuous batching) sets 1 so all live streams advance in
+        # lockstep, one batched step per sweep.
+        self.stream_pump_burst: Optional[int] = self.config.stream_pump_burst
         orch.register_channel(name, self)
 
     # -- server API (Fig. 6 left) -------------------------------------------
@@ -720,8 +837,8 @@ class Channel:
         ``ArgView`` (lazy, bounds-checked when sandboxed) over the
         marshalled argument tuple and returns a Python value, which is
         marshalled back to the caller. Serves both the pointer-passing
-        (``invoke``) and the serialized (fallback-route) forms of the
-        request."""
+        (``invoke``) and the serialized (``invoke_serialized`` /
+        fallback-route) forms of the request."""
         self.functions[fn_id] = _get_marshal().typed_handler(fn)
 
     def serve(self, instance, interceptors=()):
@@ -761,7 +878,38 @@ class Channel:
             self.orch.unmap_heap(conn.client_pid, conn.heap.heap_id)
             self.orch.unmap_heap(self.server_pid, conn.heap.heap_id)
 
-    # -- serving (driven by ServerLoop, or inline by call_inline) -------------
+    # Doorbell contract (no helper — Connection._post inlines it): a post
+    # rings self._event only when self._parked is set, i.e. while listen()
+    # is blocked on the event; posts during a sweep are found by the next
+    # sweep.
+
+    # -- serve loop ------------------------------------------------------------
+    def serve_once(self) -> int:
+        """One vectorized sweep: gather every connection ring's head-slot
+        state, find ready rings with a single NumPy compare, and drain each
+        ready ring inline. Rings are SPSC and clients claim slots in seq
+        order, so only each ring's head needs inspecting. Returns the
+        number of RPCs served."""
+        conns = self.connections
+        n = len(conns)
+        if n == 0:
+            return self.pump_streams()
+        if n == 1:  # common case: skip the gather entirely
+            return self._drain(conns[0]) + self.pump_streams()
+        conns = list(conns)  # handlers may drop connections mid-drain
+        scratch = self._sweep_scratch
+        if scratch is None or scratch.shape[0] < n:
+            self._sweep_scratch = scratch = np.empty(max(8, 2 * n),
+                                                     dtype=np.uint32)
+        for i, conn in enumerate(conns):
+            ring = conn.ring
+            scratch[i] = ring.state_of(ring.head % ring.capacity)
+        ready = np.flatnonzero(scratch[:n] == R_REQ)  # ONE compare
+        served = 0
+        for i in ready:
+            served += self._drain(conns[i])
+        return served + self.pump_streams()
+
     def pump_streams(self) -> int:
         """Advance every active streaming reply: each registered generator
         emits chunks up to its client's open window (bounded — a stalled
@@ -796,6 +944,57 @@ class Channel:
         ring.head = head
         return served
 
+    def serve_many(self, max_sweeps: Optional[int] = None) -> int:
+        """Drain every ready slot found, sweep after sweep, until the
+        channel is idle (or ``max_sweeps`` sweeps have run). Requests that
+        arrive while a batch is being drained are picked up by the next
+        sweep without returning to the caller."""
+        total = 0
+        sweeps = 0
+        while True:
+            n = self.serve_once()
+            total += n
+            sweeps += 1
+            if n == 0 or (max_sweeps is not None and sweeps >= max_sweeps):
+                return total
+
+    def listen(self, policy: Optional[BusyWaitPolicy] = None,
+               stop: Optional[threading.Event] = None) -> None:
+        """``conn->listen()`` — busy-wait loop with §5.8 adaptive back-off
+        spent parked on the doorbell (see ``_serve_event_loop``)."""
+        _serve_event_loop(self.serve_many, self.serve_once, (self,),
+                          policy or BusyWaitPolicy(), stop or self._stop,
+                          self._event)
+
+    def listen_in_thread(self, policy: Optional[BusyWaitPolicy] = None
+                         ) -> threading.Thread:
+        self._stop.clear()
+        t = threading.Thread(target=self.listen, args=(policy,), daemon=True)
+        t.start()
+        return t
+
+    @classmethod
+    def serve_all(cls, channels: List["Channel"],
+                  policy: Optional[BusyWaitPolicy] = None) -> "ServerLoop":
+        """Serve every ring of every channel in ``channels`` from ONE
+        background thread (a started ``ServerLoop``). The cluster-scale
+        replacement for one ``listen_in_thread`` per channel."""
+        loop = ServerLoop(channels, policy)
+        loop.run_in_thread()
+        return loop
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def destroy(self) -> None:
+        self.stop()
+        for st in self._streams:
+            st.abort()   # close the generators; chain pages die with heap
+        self._streams.clear()
+        for conn in list(self.connections):
+            conn.close()
+        self.orch.unregister_channel(self.name)
+
     # -- request processing (receiver half of Fig. 8) ---------------------------
     def _process(self, conn: Connection, slot: int) -> None:
         ring = conn.ring
@@ -806,9 +1005,9 @@ class Channel:
             ring.complete(slot, 0, R_ERR, E_NOFUNC)
             return
 
-        # Deadline gate: a request whose propagated deadline lapsed while
-        # queued is dropped before its seal/args are even touched — the
-        # client already gave up on it.
+        # Deadline gate (pipelined futures): a request whose propagated
+        # deadline lapsed while queued is dropped before its seal/args
+        # are even touched — the client already gave up on it.
         deadline_us = 0
         if flags & F_DEADLINE:
             deadline_us = int(
@@ -928,17 +1127,21 @@ class Channel:
 class ServerLoop:
     """One server thread serving *all* rings of N channels (§4.6 scale-out).
 
-    Each sweep gathers the head-slot state of every accepted ring of every
-    attached channel into one scratch array, finds the ready rings with a
-    single vectorized NumPy compare, drains them, and pumps the channels'
-    live streams. The §5.8 busy-wait budget and the doorbell are shared:
-    attaching a channel rebinds its doorbell event to the loop's, so while
-    the loop is parked a post on ANY attached channel wakes it at once.
+    Extends ``Channel.serve_once``'s per-channel sweep **across channels**:
+    each iteration gathers the head-slot state of every accepted ring of
+    every attached channel into one scratch array and finds the ready rings
+    with a single vectorized NumPy compare. The §5.8 busy-wait budget and
+    the doorbell are likewise shared: attaching a channel rebinds its
+    doorbell event to the loop's, so while the loop is parked a post on
+    ANY attached channel wakes it immediately.
+
     The flat connection list is cached and invalidated by the channels'
-    ``_conn_version`` counters.
+    ``_conn_version`` counters, so the steady state does no list rebuilds —
+    the sweep is one Python loop of word loads plus ONE compare, as
+    ``Channel.serve_once``'s single-channel sweep, just wider.
     """
 
-    def __init__(self, channels: List[Channel],
+    def __init__(self, channels: Optional[List[Channel]] = None,
                  policy: Optional[BusyWaitPolicy] = None):
         self.channels: List[Channel] = []
         self.policy = policy or BusyWaitPolicy()
@@ -948,10 +1151,25 @@ class ServerLoop:
         self._conns: List[Connection] = []
         self._versions: List[int] = []
         self._scratch: Optional[np.ndarray] = None
-        for ch in channels:
-            if ch not in self.channels:
-                self.channels.append(ch)
-                ch._event = self._event   # posts now ring the shared bell
+        # stats
+        self.n_sweeps = 0
+        self.n_served = 0
+        for ch in (channels or []):
+            self.attach(ch)
+
+    # -- channel set --------------------------------------------------------
+    def attach(self, channel: Channel) -> None:
+        if channel not in self.channels:
+            self.channels.append(channel)
+            channel._event = self._event  # posts now ring the shared bell
+            self._versions = []           # force a conn-list rebuild
+
+    def detach(self, channel: Channel) -> None:
+        if channel in self.channels:
+            self.channels.remove(channel)
+            channel._event = threading.Event()
+            channel._parked = False
+            self._versions = []
 
     def _refresh_conns(self) -> None:
         chs = self.channels
@@ -971,68 +1189,50 @@ class ServerLoop:
     # -- sweeps -------------------------------------------------------------
     def sweep_once(self) -> int:
         """One vectorized sweep over every ring of every channel; drains
-        each ready ring inline and pumps live streams. Returns the RPCs
-        served plus the stream chunks emitted."""
+        each ready ring inline. Returns the number of RPCs served."""
         self._refresh_conns()
         conns = self._conns
         n = len(conns)
-        served = 0
+        self.n_sweeps += 1
+        if n == 0:
+            return 0
         if n == 1:  # common case: skip the gather
             conn = conns[0]
             served = conn.channel._drain(conn)
-        elif n:
+        else:
             scratch = self._scratch
             for i, conn in enumerate(conns):
                 ring = conn.ring
                 scratch[i] = ring.state_of(ring.head % ring.capacity)
             ready = np.flatnonzero(scratch[:n] == R_REQ)  # ONE compare
+            served = 0
             for i in ready:
                 conn = conns[i]
                 served += conn.channel._drain(conn)
         for ch in self.channels:
             if ch._streams:
                 served += ch.pump_streams()
+        self.n_served += served
         return served
 
-    def serve_pending(self) -> int:
-        """Sweep until idle."""
+    def serve_pending(self, max_sweeps: Optional[int] = None) -> int:
+        """Sweep until idle (cf. ``Channel.serve_many``, across channels)."""
         total = 0
+        sweeps = 0
         while True:
             n = self.sweep_once()
             total += n
-            if n == 0:
+            sweeps += 1
+            if n == 0 or (max_sweeps is not None and sweeps >= max_sweeps):
                 return total
 
     # -- the event loop ------------------------------------------------------
-    def run(self) -> None:
-        """The §5.8 busy-wait loop. The policy's back-off is spent blocked
-        on the doorbell rather than in a blind nap, so a post that lands
-        while the loop backs off wakes it at once. The clear → park →
-        re-sweep → wait order is race-sensitive: a post may land between
-        the clear and the park flag, hence the re-sweep after parking."""
-        stop, ev, channels, policy = (self._stop, self._event, self.channels,
-                                      self.policy)
-        while not stop.is_set():
-            n = self.serve_pending()
-            policy.record(n > 0)
-            if n:
-                continue
-            delay = policy.delay_s()
-            if delay <= 0:
-                time.sleep(0)  # spin, but yield the GIL
-                continue
-            ev.clear()
-            for ch in channels:
-                ch._parked = True
-            # posts from here on see _parked and ring the doorbell
-            if self.sweep_once():
-                for ch in channels:
-                    ch._parked = False
-                policy.record(True)
-                continue
-            ev.wait(delay)
-            for ch in channels:
-                ch._parked = False
+    def run(self, stop: Optional[threading.Event] = None) -> None:
+        """Busy-wait loop with the §5.8 back-off spent parked on the shared
+        doorbell (same protocol as ``Channel.listen``, across channels)."""
+        _serve_event_loop(self.serve_pending, self.sweep_once,
+                          self.channels, self.policy, stop or self._stop,
+                          self._event)
 
     def run_in_thread(self) -> threading.Thread:
         self._stop.clear()
@@ -1043,13 +1243,18 @@ class ServerLoop:
         return t
 
     def stop(self, join: bool = True, timeout: float = 2.0) -> None:
-        """Stop the loop; by default join the serving thread."""
+        """Stop the loop; by default join the serving thread (clean
+        shutdown — no leaked listener threads)."""
         self._stop.set()
         self._event.set()  # wake a parked loop immediately
         t = self._thread
         if join and t is not None and t is not threading.current_thread():
             t.join(timeout)
         self._thread = None
+
+    @property
+    def running(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
 
 
 class ServerCtx:
@@ -1067,7 +1272,15 @@ class ServerCtx:
     def read(self, a: int, nbytes: int):
         if self.sandbox is not None:
             return self.sandbox.read(a, nbytes)
-        return self.conn.heap.read(a, nbytes)
+        heap = self.conn.heap
+        return heap.read(a, nbytes)
+
+    def write(self, a: int, data) -> None:
+        """Handler-facing store: sandbox-confined exactly like ``read``
+        — a sandboxed handler must not write outside its pages (§4.4)."""
+        if self.sandbox is not None:
+            self.sandbox.check(a, SharedHeap._payload_nbytes(data))
+        self.conn.heap.write(a, data)
 
     def _daemon_write(self, a: int, data) -> None:
         """Privileged runtime store (reply marshalling): librpcool writes
@@ -1086,7 +1299,7 @@ class RPC:
         self.pid = pid
         self._channel: Optional[Channel] = None
 
-    # server: rpc.open("mychannel"); rpc.add(100, fn)
+    # server: rpc.open("mychannel"); rpc.add(100, fn); rpc.accept(); listen()
     def open(self, name: str, **kw) -> Channel:
         self._channel = Channel(self.orch, name, self.pid, **kw)
         return self._channel

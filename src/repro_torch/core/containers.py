@@ -27,6 +27,11 @@ bounds-checked; a wild pointer raises the SIGSEGV-analogue instead of
 leaking server memory, §4.3's linked-list-to-secret-key attack), a
 ``ServerCtx``, or a fallback ``DSMNode``.
 
+``deep_copy`` reproduces ``conn.copy_from(ptr)`` (§5.6): a structural
+traversal that rebuilds the object graph inside a different heap or
+scope (a ``GraphRef`` passed to a connection of another heap, or under a
+seal or sandbox that covers only the call scope).
+
 The encoding is the reference package's byte for byte: the same Python
 value built into the same scope gives the same bytes at the same offsets.
 """
@@ -300,3 +305,12 @@ def _psize(reader) -> int:
     if callable(heap):  # ServerCtx.heap()
         return heap().page_size
     return getattr(reader, "page_size")
+
+
+# ---------------------------------------------------------------------------
+# deep copy — conn.copy_from(ptr) (§5.6)
+# ---------------------------------------------------------------------------
+def deep_copy(src_reader, dst_scope: Scope, value: Value,
+              pid: int = 0) -> Value:
+    """Structurally copy an object graph into another heap's scope."""
+    return build_value(dst_scope, to_python(src_reader, value), pid)

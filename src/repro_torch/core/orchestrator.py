@@ -9,10 +9,8 @@ hierarchical names, and keeps the *coherence-domain* registry: two
 processes share hardware cache coherence iff they are in the same pod.
 ``ClusterRouter`` consults exactly this metadata to choose between the
 CXL ring and the fallback transport. Time is injected (``clock``);
-production uses ``time.monotonic``.
-
-``ReproConfig`` holds the constants the channel, the fallback transport
-and the router read, with the reference's default values.
+production uses ``time.monotonic``. The plane's tuning defaults live in
+``repro_torch.configs.global_config``.
 """
 
 from __future__ import annotations
@@ -25,23 +23,6 @@ from .errors import ChannelError
 from .heap import SharedHeap
 
 DEFAULT_LEASE_TTL = 5.0  # seconds
-
-
-class ReproConfig:
-    """The runtime constants the plane reads (the reference's defaults)."""
-
-    # §5.4 bounded admission queue: budget a ring-full post may park
-    # before a typed Overloaded, and parked posters per connection
-    admission_wait_s = 0.05
-    admission_max_waiters = 8
-    # §5.8 busy-wait: fixed poll sleep in µs (None = load-adaptive) and
-    # the duty-cycle window the adaptive policy estimates over
-    wait_fixed_sleep_us: Optional[float] = None
-    wait_window = 256
-    # §5.6 fallback transport: the modeled one-way link latency and the
-    # pooled links per pod pair
-    fallback_link_latency_us = 3.0
-    fallback_pool_size = 2
 
 
 @dataclass
@@ -165,3 +146,6 @@ class Orchestrator:
             return self.channels[name]
         except KeyError:
             raise ChannelError(f"no such channel {name!r}")
+
+    def unregister_channel(self, name: str) -> None:
+        self.channels.pop(name, None)

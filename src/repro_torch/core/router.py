@@ -16,6 +16,13 @@ way (§5.6).
   bridged onto the same live handler table, over the pod pair's shared
   ``LinkPool``).
 * ``stub(name, service, pid)`` wraps that handle in a ``ServiceStub``.
+
+Every call form rides either route: ``invoke``/``call``, pipelined
+``invoke_async`` futures (posted on the ring, or staged for the link's
+next one-sided flight), ``invoke_stream`` chunk iterators (pushed by the
+serve loop, or pulled in staged chunk flights), ``invoke_serialized``
+and prebuilt ``build_graph`` argument tuples. The handle returns the
+transport's own future or stream.
 """
 
 from __future__ import annotations
@@ -24,24 +31,47 @@ import threading
 from typing import Dict, List, Optional, Tuple
 
 from . import addr as gaddr
+from ..configs.global_config import ReproConfig, global_config
 from .channel import Channel
 from .errors import ChannelError
-from .fallback import LinkPool
-from .orchestrator import Orchestrator, ReproConfig
+from .fallback import FallbackConnection, LinkPool
+from .orchestrator import Orchestrator
 from .scope import Scope
-
-
-# the fallback plane's shape (the reference's defaults): pages of each
-# link's heap replicas, and descriptor slots of a fallback ring
-FALLBACK_PAGES = 4096
-FALLBACK_RING_CAPACITY = 64
 
 
 class ClusterRouter:
     """Names → transports: the layer every client connects through."""
 
-    def __init__(self, orch: Orchestrator):
+    def __init__(self, orch: Orchestrator,
+                 fallback_pages: Optional[int] = None,
+                 fallback_link_latency_us: Optional[float] = None,
+                 fallback_ring_capacity: Optional[int] = None,
+                 fallback_pool_size: Optional[int] = None,
+                 fallback_stripe: Optional[str] = None,
+                 fallback_one_sided: Optional[bool] = None,
+                 config: Optional[ReproConfig] = None):
+        # knob defaults come from the central ReproConfig; an explicit
+        # kwarg (anything not None) still overrides per router
+        cfg = config or global_config
+        self.config = cfg
         self.orch = orch
+        self.fallback_pages = cfg.fallback_pages \
+            if fallback_pages is None else fallback_pages
+        self.fallback_link_latency_us = cfg.fallback_link_latency_us \
+            if fallback_link_latency_us is None else fallback_link_latency_us
+        self.fallback_ring_capacity = cfg.fallback_ring_capacity \
+            if fallback_ring_capacity is None else fallback_ring_capacity
+        # cross-pod transport shape: ``fallback_pool_size >= 1`` shares a
+        # per-pod-pair LinkPool across every client the router routes to
+        # that pod (striped by ``fallback_stripe``); 0 gives each connect
+        # a private link. ``fallback_one_sided`` selects cMPI put/get bulk
+        # framing vs the send/ack flights.
+        self.fallback_pool_size = cfg.fallback_pool_size \
+            if fallback_pool_size is None else fallback_pool_size
+        self.fallback_stripe = cfg.fallback_stripe \
+            if fallback_stripe is None else fallback_stripe
+        self.fallback_one_sided = cfg.fallback_one_sided \
+            if fallback_one_sided is None else fallback_one_sided
         # (client pod, server pod, page_size) -> shared LinkPool
         self._link_pools: Dict[Tuple, LinkPool] = {}
         self.endpoints: Dict[str, Channel] = {}
@@ -61,13 +91,14 @@ class ClusterRouter:
         with self._lock:
             pool = self._link_pools.get(key)
             if pool is None:
-                cfg = ReproConfig
                 pool = LinkPool(
-                    num_pages=FALLBACK_PAGES, page_size=page_size,
-                    link_latency_us=cfg.fallback_link_latency_us,
-                    pool_size=cfg.fallback_pool_size,
+                    num_pages=self.fallback_pages,
+                    page_size=page_size,
+                    link_latency_us=self.fallback_link_latency_us,
+                    pool_size=self.fallback_pool_size,
+                    stripe=self.fallback_stripe,
                     heap_ids=[orch.alloc_heap_id()
-                              for _ in range(cfg.fallback_pool_size)])
+                              for _ in range(self.fallback_pool_size)])
                 self._link_pools[key] = pool
             return pool
 
@@ -155,17 +186,33 @@ class RoutedConnection:
     def _attach(self) -> None:
         ch = self.endpoint
         router = self.router
-        if router.orch.same_domain(self.client_pid, ch.server_pid):
+        orch = router.orch
+        if orch.same_domain(self.client_pid, ch.server_pid):
             self.target = ch.accept(self.client_pid, self.ring_capacity)
             self.transport = "cxl"
             router.n_cxl_connects += 1
         else:
-            pool = router._fallback_pool(self.client_pid, ch.server_pid,
-                                         ch.page_size)
-            self.target = pool.connect(
-                client_pid=self.client_pid, server_pid=ch.server_pid,
-                ring_capacity=FALLBACK_RING_CAPACITY,
-                functions=ch.functions)  # the SAME live handler table
+            if router.fallback_pool_size >= 1:
+                pool = router._fallback_pool(self.client_pid,
+                                             ch.server_pid, ch.page_size)
+                self.target = pool.connect(
+                    client_pid=self.client_pid,
+                    server_pid=ch.server_pid,
+                    ring_capacity=router.fallback_ring_capacity,
+                    functions=ch.functions,  # the SAME live handler table
+                    one_sided=router.fallback_one_sided)
+            else:
+                # one private link per connect
+                self.target = FallbackConnection(
+                    num_pages=router.fallback_pages,
+                    page_size=ch.page_size,
+                    link_latency_us=router.fallback_link_latency_us,
+                    client_pid=self.client_pid,
+                    server_pid=ch.server_pid,
+                    ring_capacity=router.fallback_ring_capacity,
+                    functions=ch.functions,  # the SAME live handler table
+                    heap_id=orch.alloc_heap_id(),
+                    one_sided=router.fallback_one_sided)
             # the admission gate guards the SERVICE, not the transport:
             # cross-pod requests shed exactly like same-pod ones
             self.target.admission = ch.admission
@@ -190,25 +237,77 @@ class RoutedConnection:
         the CXL ring in pod, the serialized fallback route across pods."""
         return self._ensure().invoke(fn_id, *args, **kw)
 
+    def invoke_serialized(self, fn_id: int, *args, **kw):
+        """The by-value form bound to the endpoint name: the Fig. 11
+        serializing baseline on a CXL route, the native copy semantics on
+        a fallback route."""
+        target = self._ensure()
+        if self.transport == "cxl":
+            return target.invoke_serialized(fn_id, *args, **kw)
+        return target.invoke(fn_id, *args, **kw)
+
+    def invoke_async(self, fn_id: int, *args, **kw):
+        """Pipelined typed invoke: the transport's own future — an
+        ``RpcFuture`` posted on the ring now, or a ``FallbackRpcFuture``
+        staged for the link's next flight."""
+        return self._ensure().invoke_async(fn_id, *args, **kw)
+
     def invoke_stream(self, fn_id: int, *args, **kw):
-        """Streaming typed invoke: the reply chain needs the CXL ring
-        (streams over the fallback link are not ported)."""
+        """Streaming typed invoke: the transport's own chunk iterator — an
+        ``RpcStream`` the serve loop pushes, or a ``FallbackRpcStream``
+        pulled in staged chunk flights."""
+        return self._ensure().invoke_stream(fn_id, *args, **kw)
+
+    def build_graph(self, *values):
+        """Materialize an argument tuple once against the live target's
+        heap (see ``marshal.build_graph``)."""
+        from .marshal import build_graph
+        return build_graph(self._ensure(), *values)
+
+    def call_async(self, fn_id: int, arg_addr: int = gaddr.NULL,
+                   **kw) -> Tuple[int, int]:
         target = self._ensure()
         if self.transport != "cxl":
             raise ChannelError(
-                "invoke_stream needs the CXL ring; streams over the "
-                "fallback link are not supported")
-        return target.invoke_stream(fn_id, *args, **kw)
+                "call_async needs the CXL ring; the fallback link is "
+                "synchronous request/reply (§5.6 limitation)")
+        return target.call_async(fn_id, arg_addr, **kw)
+
+    def wait(self, token: Tuple[int, int], **kw) -> int:
+        if self.closed:
+            raise ChannelError("wait on closed RoutedConnection")
+        return self.target.wait(token, **kw)
 
     # -- object construction (always against the live target's heap) --------
     def create_scope(self, size_bytes: int) -> Scope:
         return self._ensure().create_scope(size_bytes)
+
+    def new_bytes(self, data: bytes, scope: Optional[Scope] = None) -> int:
+        return self._ensure().new_bytes(data, scope)
+
+    def scope_pool(self, scope_pages: int = 1):
+        target = self._ensure()
+        if self.transport != "cxl":
+            raise ChannelError("scope_pool is a CXL-path amortization")
+        return target.scope_pool(scope_pages)
 
     @property
     def heap(self):
         target = self._ensure()
         return target.heap if self.transport == "cxl" \
             else target.client.heap
+
+    @property
+    def seals(self):
+        return self._ensure().seals
+
+    @property
+    def n_calls(self) -> int:
+        return 0 if self.target is None else self.target.n_calls
+
+    @property
+    def n_invokes(self) -> int:
+        return 0 if self.target is None else self.target.n_invokes
 
     @property
     def marshal_bytes(self) -> int:

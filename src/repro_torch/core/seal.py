@@ -84,6 +84,12 @@ class SealManager:
         # flush generation: anything queued in generation g is released
         # once flush_gen > g (scope pools test release status in O(1))
         self.flush_gen = 0
+        # counters (the reference's): seals, zero-epoch re-seals,
+        # releases applied, batch flushes
+        self.n_seals = 0
+        self.n_fast_seals = 0
+        self.n_releases = 0
+        self.n_batch_flushes = 0
 
     # -- descriptor ring I/O ----------------------------------------------
     def _read_desc(self, idx: int) -> Tuple[int, int, int, int, int]:
@@ -113,6 +119,8 @@ class SealManager:
                 self._pending_dead = 0
             idx = ent[0]
             self._state[idx % self.capacity] = S_SEALED
+            self.n_seals += 1
+            self.n_fast_seals += 1
             return idx
         idx = self._next_seq
         self._next_seq += 1
@@ -124,6 +132,7 @@ class SealManager:
         # Fig. 8 ordering: descriptor first (2), then lock the pages (3).
         self._write_desc(idx, idx, start, count, holder, S_SEALED)
         self.heap.protect_range(start, count, holder)
+        self.n_seals += 1
         return idx
 
     def release(self, idx: int, holder: int) -> None:
@@ -133,6 +142,7 @@ class SealManager:
         self._check_not_queued(idx)
         self.heap.unprotect_range(start, count)
         self._write_desc(idx, seq, start, count, h, S_RELEASED)
+        self.n_releases += 1
 
     def release_batched(self, idx: int, holder: int) -> bool:
         """Queue a release; flush (one epoch bump) at the batch threshold.
@@ -150,6 +160,23 @@ class SealManager:
             return True
         return False
 
+    def release_window(self, idxs, holder: int) -> int:
+        """Release a whole pipeline window in ONE permission epoch (§5.3
+        composed with pipelined flights): every seal of the window is
+        queued, then one ``flush`` applies the batch. Each release is
+        still checked on its own (completion, holder, no double release);
+        only the permission flip and epoch bump are shared. Returns the
+        epochs spent: 1 for the window, plus any threshold flush the
+        queueing itself triggered on a huge window."""
+        epochs = 0
+        for idx in idxs:
+            if self.release_batched(idx, holder):
+                epochs += 1
+        if self._pending_live:
+            self.flush()
+            epochs += 1
+        return epochs
+
     def flush(self) -> None:
         """Release every pending seal with a single permission epoch."""
         if not self._pending:
@@ -159,6 +186,8 @@ class SealManager:
             self.heap.unprotect_ranges([(e[2], e[3]) for e in live])
             for idx, seq, start, count, h, _ in live:
                 self._write_desc(idx, seq, start, count, h, S_RELEASED)
+        self.n_releases += len(live)
+        self.n_batch_flushes += 1
         self._pending.clear()
         self._reusable.clear()
         self._queued.clear()

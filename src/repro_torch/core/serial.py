@@ -1,16 +1,22 @@
-"""Serializing wire format — the by-value payload of the fallback route.
+"""Serializing wire format — the by-value payload of the fallback route,
+and the gRPC/Thrift-analogue baseline (§2).
 
 Everything RPCool avoids on the CXL route: arguments are flattened to
 bytes, copied across the link, and rebuilt on the far side (§5.6 copy
 semantics). The format is a compact tag-length-value encoding over the
 same object model as ``containers``, byte-identical to the reference
-package's.
+package's. ``SerialChannel`` is the legacy copy-based endpoint the
+Table 1a / Fig. 11 comparisons measure against.
 """
 
 from __future__ import annotations
 
 import struct
-from typing import Any, Optional
+import threading
+import time
+from typing import Any, Callable, Dict, Optional
+
+from .errors import ChannelError
 
 _TAG_NONE = 0
 _TAG_INT = 1
@@ -103,3 +109,84 @@ def _dec(raw: bytes, off: int):
             out[k] = v
         return out, off
     raise ValueError(f"corrupt wire tag {tag}")
+
+
+class SerialChannel:
+    """Copy-based RPC endpoint: args serialized into a message buffer.
+
+    ``msg_capacity`` bounds a single message (like gRPC's max message
+    size). A background listen thread mirrors the zero-copy channel's
+    busy-wait loop so RTT comparisons are apples-to-apples.
+    """
+
+    R_EMPTY, R_REQ, R_DONE, R_ERR = 0, 1, 2, 3
+
+    def __init__(self, msg_capacity: int = 1 << 20,
+                 link_latency_us: float = 0.0):
+        self.functions: Dict[int, Callable[[Any], Any]] = {}
+        self._req = bytearray(msg_capacity)
+        self._resp = bytearray(msg_capacity)
+        self._req_len = 0
+        self._resp_len = 0
+        self._fn_id = 0
+        self._state = self.R_EMPTY
+        self._stop = threading.Event()
+        self.link_latency_us = link_latency_us
+        self.bytes_sent = 0
+        self.n_calls = 0
+
+    def add(self, fn_id: int, fn: Callable[[Any], Any]) -> None:
+        self.functions[fn_id] = fn
+
+    def call(self, fn_id: int, obj: Any, timeout: float = 10.0) -> Any:
+        wire = encode(obj)  # serialize
+        if len(wire) > len(self._req):
+            raise ChannelError("message too large")
+        self._req[: len(wire)] = wire  # copy onto the "network"
+        self._req_len = len(wire)
+        self._fn_id = fn_id
+        self.bytes_sent += len(wire)
+        if self.link_latency_us:
+            time.sleep(self.link_latency_us * 1e-6)
+        self._state = self.R_REQ
+        deadline = time.monotonic() + timeout
+        while self._state == self.R_REQ:
+            if time.monotonic() > deadline:
+                raise ChannelError("serial RPC timeout")
+            time.sleep(0)  # GIL yield — same spin discipline as rpcool
+        if self._state == self.R_ERR:
+            self._state = self.R_EMPTY
+            raise ChannelError("remote error")
+        if self.link_latency_us:
+            time.sleep(self.link_latency_us * 1e-6)
+        out = decode(bytes(self._resp[: self._resp_len]))  # deserialize
+        self._state = self.R_EMPTY
+        self.n_calls += 1
+        return out
+
+    def serve_once(self) -> int:
+        if self._state != self.R_REQ:
+            return 0
+        try:
+            obj = decode(bytes(self._req[: self._req_len]))  # deserialize
+            ret = self.functions[self._fn_id](obj)
+            wire = encode(ret)  # serialize the reply
+            self._resp[: len(wire)] = wire
+            self._resp_len = len(wire)
+            self.bytes_sent += len(wire)
+            self._state = self.R_DONE
+        except Exception:
+            self._state = self.R_ERR
+        return 1
+
+    def listen_in_thread(self) -> threading.Thread:
+        def loop():
+            while not self._stop.is_set():
+                if not self.serve_once():
+                    time.sleep(0)  # GIL yield between idle polls
+        t = threading.Thread(target=loop, daemon=True)
+        t.start()
+        return t
+
+    def stop(self) -> None:
+        self._stop.set()

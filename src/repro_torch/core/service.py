@@ -1,39 +1,53 @@
 """Declarative service layer — named methods over the typed data plane.
 
-What a programmer wants on top of channels and in-flight RPCs is a
-service: named methods with options and a client proxy. This module is
-that surface — a thin layer over ``conn.invoke`` / ``conn.invoke_stream``
-that leaves the raw integer ``fn_id`` API intact underneath.
+RPCool's client API (paper §5) is channels + in-flight RPCs; what a
+*programmer* wants on top is a service: named methods with options, a
+client proxy, futures. This module is that surface — a thin, fully
+declarative layer over ``conn.invoke`` / ``conn.invoke_async`` that
+leaves the raw integer ``fn_id`` API intact underneath as the documented
+low-level escape hatch.
 
 Server::
 
-    @service(name="decode")
-    class DecodeService:
-        @method(fn_id=100, sealed=True, sandboxed=True, deadline=30.0)
-        def attach(self, ctx, rid, prompt_len, pages): ...
+    @service
+    class KV:
+        def get(self, ctx, key):            # default options
+            return self.store.get(key)
 
-    channel.serve(DecodeService(engine))      # registers every method
+        @method(sealed=True, sandboxed=True, deadline=2.0)
+        def put(self, ctx, key, val):
+            self.store[key] = val
+
+    channel.serve(KV())                     # registers every method
 
 Client::
 
-    stub = router.stub("/pod0/decode", DecodeService, pid=11)
-    stub.attach(rid, n, pages)                # sync typed invoke
-    for tok in stub.generate_stream.stream(prompt, 16): ...
+    stub = router.stub("/pod0/kv", KV, pid=7)   # or ServiceStub(conn, KV)
+    stub.put("k", 1)                            # sync typed invoke
+    f = stub.get.future("k")                    # pipelined RpcFuture
+    gather([f, stub.get.future("j")])           # out-of-order drain
 
 Method *names* map to **stable fn ids**: a hash of ``service.method``
 pinned into the upper half of the u32 fn space, so ids survive method
-reordering and never collide with hand-wired small integers. Per-method
-options: ``sealed``/``sandboxed`` (the §4.5/§4.4 protections),
+reordering/insertion and never collide with hand-wired small integers.
+Per-method options: ``sealed``/``sandboxed`` (the §4.5/§4.4 protections),
+``byval`` (force copy semantics — the retry-safe form),
 ``deadline`` (seconds of budget, propagated into the descriptor),
-``streaming`` (a generator handler) and ``byref`` (pool-page reference
-arguments resolved against the route). Dispatch runs through a small
-interceptor chain (``intercept(call, proceed)``); ``DeadlineEnforcer``
-and ``AdmissionInterceptor`` are the built-ins.
+``retry`` (client retries of retry-safe calls), ``streaming`` (a
+generator handler) and ``byref`` (pool-page reference arguments resolved
+against the route).
+
+Both stub dispatch and handler dispatch run through a small interceptor
+chain (``intercept(call, proceed)``); ``StatsInterceptor``,
+``DeadlineEnforcer``, ``AdmissionInterceptor`` and ``RetryInterceptor``
+are the built-ins.
 """
 
 from __future__ import annotations
 
 import inspect
+import random
+import time
 import zlib
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -57,38 +71,51 @@ def stable_fn_id(service_name: str, method_name: str) -> int:
 class MethodSpec:
     """One method's wire identity + per-method options."""
 
-    __slots__ = ("name", "fn_id", "sealed", "sandboxed", "deadline",
-                 "streaming", "byref")
+    __slots__ = ("name", "fn_id", "sealed", "sandboxed", "byval",
+                 "deadline", "retry", "streaming", "byref")
 
     def __init__(self, name: str, fn_id: int, sealed: bool = False,
-                 sandboxed: bool = False, deadline: Optional[float] = None,
+                 sandboxed: bool = False, byval: bool = False,
+                 deadline: Optional[float] = None, retry: int = 0,
                  streaming: bool = False, byref: bool = False):
         self.name = name
         self.fn_id = fn_id
         self.sealed = sealed
         self.sandboxed = sandboxed
+        self.byval = byval
         self.deadline = deadline
+        self.retry = retry
         self.streaming = streaming
         self.byref = byref
 
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"<MethodSpec {self.name} fn_id=0x{self.fn_id:08x} "
+                f"sealed={self.sealed} sandboxed={self.sandboxed} "
+                f"byval={self.byval} deadline={self.deadline} "
+                f"retry={self.retry} streaming={self.streaming} "
+                f"byref={self.byref}>")
+
 
 def method(fn=None, *, fn_id: Optional[int] = None, sealed: bool = False,
-           sandboxed: bool = False, deadline: Optional[float] = None,
+           sandboxed: bool = False, byval: bool = False,
+           deadline: Optional[float] = None, retry: int = 0,
            streaming: bool = False, byref: bool = False):
     """Set a service method's per-method options. Usable bare
     (``@method``) or parameterized (``@method(sealed=True)``). Every
-    public method of a ``@service`` class is exported either way;
-    underscore-prefixed methods stay private helpers. ``streaming=True``
-    declares a generator handler: clients consume it with
-    ``stub.m.stream(...)`` (or drain it to a list with a plain call).
-    ``byref=True`` declares pool-page reference arguments: at dispatch,
-    any argument exposing ``__byref_resolve__(conn)`` (e.g.
-    ``serving.kv_pool.PoolPages``) is resolved against the route —
-    same-pod calls pass the raw page indices, cross-pod calls migrate the
-    pages first and pass the destination indices."""
+    public method of a ``@service`` class is exported either way —
+    undecorated methods get the defaults; underscore-prefixed methods
+    stay private helpers. ``streaming=True`` declares a generator
+    handler: clients consume it with ``stub.m.stream(...)`` (or drain it
+    to a list with a plain sync call). ``byref=True`` declares pool-page
+    reference arguments: at dispatch, any argument exposing
+    ``__byref_resolve__(conn)`` (e.g. ``serving.kv_pool.PoolPages``) is
+    resolved against the route — same-pod calls pass the raw page
+    indices, cross-pod calls bulk-migrate the pages first and pass the
+    destination indices."""
     def deco(f):
         f.__rpc_method__ = dict(fn_id=fn_id, sealed=sealed,
-                                sandboxed=sandboxed, deadline=deadline,
+                                sandboxed=sandboxed, byval=byval,
+                                deadline=deadline, retry=retry,
                                 streaming=streaming, byref=byref)
         return f
     return deco(fn) if fn is not None else deco
@@ -150,6 +177,13 @@ class ServiceDef:
         handler.__name__ = f"{svc}.{spec.name}"
         return handler
 
+    # -- client half -----------------------------------------------------
+    def stub(self, conn, interceptors=()) -> "ServiceStub":
+        return ServiceStub(conn, self, interceptors)
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return f"<ServiceDef {self.name} methods={sorted(self.methods)}>"
+
 
 def service(cls=None, *, name: Optional[str] = None):
     """Class decorator: derive a ``ServiceDef`` from the class's methods
@@ -162,11 +196,12 @@ def service(cls=None, *, name: Optional[str] = None):
             for nm, fn in vars(k).items():
                 if inspect.isfunction(fn) and not nm.startswith("_"):
                     funcs[nm] = fn
-        if not funcs:
+        exported = funcs
+        if not exported:
             raise ChannelError(
                 f"@service class {klass.__name__} exports no methods")
         methods = {}
-        for nm, fn in funcs.items():
+        for nm, fn in exported.items():
             opts = getattr(fn, "__rpc_method__", None) or {}
             fid = opts.get("fn_id")
             methods[nm] = MethodSpec(
@@ -174,7 +209,9 @@ def service(cls=None, *, name: Optional[str] = None):
                 fid if fid is not None else stable_fn_id(svc_name, nm),
                 sealed=opts.get("sealed", False),
                 sandboxed=opts.get("sandboxed", False),
+                byval=opts.get("byval", False),
                 deadline=opts.get("deadline"),
+                retry=opts.get("retry", 0),
                 streaming=opts.get("streaming", False),
                 byref=opts.get("byref", False))
         klass.__service_def__ = ServiceDef(svc_name, methods)
@@ -201,14 +238,17 @@ def service_def(obj) -> ServiceDef:
 class ClientCall:
     """What a client interceptor sees for one stub dispatch."""
 
-    __slots__ = ("service", "spec", "args", "kwargs", "conn", "is_stream")
+    __slots__ = ("service", "spec", "args", "kwargs", "is_future", "conn",
+                 "is_stream")
 
     def __init__(self, svc: str, spec: MethodSpec, args: Tuple,
-                 kwargs: dict, conn, is_stream: bool = False):
+                 kwargs: dict, is_future: bool, conn,
+                 is_stream: bool = False):
         self.service = svc
         self.spec = spec
         self.args = args
         self.kwargs = kwargs
+        self.is_future = is_future
         self.conn = conn
         self.is_stream = is_stream
 
@@ -249,6 +289,40 @@ class Interceptor:
 
     def intercept(self, call, proceed):
         return proceed()
+
+
+class StatsInterceptor(Interceptor):
+    """Per-method call/error/latency accounting; usable on either side
+    of the wire (hook the same instance into stub and serve to compare
+    client-observed vs server-side time)."""
+
+    def __init__(self):
+        self.calls: Dict[str, int] = {}
+        self.errors: Dict[str, int] = {}
+        self.total_us: Dict[str, float] = {}
+        # live dispatch gauge (drops back on return/raise) — the same
+        # in-flight signal the replica balancer keeps per replica
+        self.inflight: Dict[str, int] = {}
+
+    def intercept(self, call, proceed):
+        key = f"{call.service}.{call.method}"
+        t0 = time.perf_counter()
+        self.inflight[key] = self.inflight.get(key, 0) + 1
+        try:
+            return proceed()
+        except BaseException:
+            self.errors[key] = self.errors.get(key, 0) + 1
+            raise
+        finally:
+            self.inflight[key] -= 1
+            self.calls[key] = self.calls.get(key, 0) + 1
+            self.total_us[key] = self.total_us.get(key, 0.0) \
+                + (time.perf_counter() - t0) * 1e6
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        return {k: {"calls": n, "errors": self.errors.get(k, 0),
+                    "mean_us": self.total_us.get(k, 0.0) / n}
+                for k, n in self.calls.items()}
 
 
 class DeadlineEnforcer(Interceptor):
@@ -302,35 +376,128 @@ class AdmissionInterceptor(Interceptor):
         self.in_flight -= 1
 
 
+class RetryInterceptor(Interceptor):
+    """Client-side retry with capped jittered exponential backoff.
+
+    Re-runs a *retry-safe* sync dispatch on ``ChannelError`` up to the
+    method's ``retry`` budget (or this interceptor's default when the
+    method sets none). Retry-safe means nothing in the request pins a
+    heap: ``byval`` methods always, other methods only when no argument
+    is a ``GraphRef``. An ``Overloaded`` failure honors the suggested
+    retry-after as a floor on the next pause (§5.4); other channel
+    errors follow the exponential schedule.
+
+    Three things never retry: ``DeadlineExceeded`` (the budget is
+    gone), a streaming dispatch that already yielded chunks (delivered
+    chunks cannot be un-delivered — ``_client_final`` annotates the
+    failure with ``chunks_delivered``), and any attempt whose pause
+    would overshoot the method deadline's worth of wall time. Futures
+    and stream iterators pass through: a failed future is settled, and
+    re-issued, by its caller."""
+
+    def __init__(self, default_retries: int = 0,
+                 backoff_base_s: float = 0.001,
+                 backoff_cap_s: float = 0.25,
+                 backoff_multiplier: float = 2.0,
+                 jitter: float = 0.5,
+                 seed: Optional[int] = None,
+                 sleep: Callable[[float], None] = time.sleep):
+        self.default_retries = default_retries
+        self.backoff_base_s = backoff_base_s
+        self.backoff_cap_s = backoff_cap_s
+        self.backoff_multiplier = backoff_multiplier
+        self.jitter = jitter
+        self._rng = random.Random(seed)
+        self._sleep = sleep
+
+    def intercept(self, call, proceed):
+        retries = call.spec.retry or self.default_retries
+        if call.is_future or call.is_stream or retries <= 0 or \
+                not _retry_safe(call):
+            # stream iterators pass through: delivered chunks cannot be
+            # un-delivered, so a failed stream is the caller's restart
+            return proceed()
+        budget = call.kwargs.get("deadline", call.spec.deadline)
+        give_up = None if budget is None \
+            else time.monotonic() + budget
+        delay = self.backoff_base_s
+        for attempt in range(retries + 1):
+            try:
+                return proceed()
+            except DeadlineExceeded:
+                raise
+            except ChannelError as e:
+                if attempt == retries:
+                    raise
+                if getattr(e, "chunks_delivered", 0):
+                    # a buffered streaming dispatch failed after
+                    # yielding: a replay would duplicate the prefix
+                    raise
+                pause = min(
+                    delay * (1.0 + self.jitter * self._rng.random()),
+                    self.backoff_cap_s)
+                retry_after = getattr(e, "retry_after_s", 0.0)
+                if retry_after:
+                    pause = max(pause, retry_after)
+                if give_up is not None and \
+                        time.monotonic() + pause >= give_up:
+                    # the method deadline's wall budget is spent: a
+                    # retry could not complete inside it
+                    raise
+                self._sleep(pause)
+                delay = min(delay * self.backoff_multiplier,
+                            self.backoff_cap_s)
+
+
+def _retry_safe(call: ClientCall) -> bool:
+    if call.spec.byval:
+        return True
+    from .marshal import GraphRef
+    return not any(isinstance(a, GraphRef) for a in call.args)
+
+
 # ---------------------------------------------------------------------------
 # the client proxy
 # ---------------------------------------------------------------------------
 class StubMethod:
     """One method proxy: ``stub.get(k)`` is a sync typed invoke,
-    ``stub.get.stream(k)`` the chunk iterator of a ``streaming=True``
-    method. Per-call overrides: ``timeout``, ``deadline``, ``inline``,
-    ``window`` (stream only)."""
+    ``stub.get.future(k)`` a pipelined one, ``stub.get.stream(k)`` the
+    chunk iterator of a ``streaming=True`` method. Per-call overrides:
+    ``timeout``, ``deadline``, ``inline`` (sync/stream), ``window``
+    (stream only)."""
 
-    __slots__ = ("_conn", "_spec", "_run", "_svc")
+    __slots__ = ("_conn", "_spec", "_run", "_svc", "spec")
 
     def __init__(self, conn, svc: str, spec: MethodSpec, interceptors):
         self._conn = conn
         self._spec = spec
+        self.spec = spec   # public: introspection / tests
         self._svc = svc
         self._run = _build_chain(interceptors, _client_final)
 
     def __call__(self, *args, **overrides):
         return self._run(ClientCall(self._svc, self._spec, args,
-                                    overrides, self._conn))
+                                    overrides, False, self._conn))
+
+    def future(self, *args, **overrides):
+        if self._spec.streaming:
+            raise ChannelError(
+                f"{self._svc}.{self._spec.name} is streaming — consume "
+                "it with .stream(...) (or a sync call to buffer it)")
+        overrides.pop("inline", None)   # futures never run inline
+        return self._run(ClientCall(self._svc, self._spec, args,
+                                    overrides, True, self._conn))
 
     def stream(self, *args, **overrides):
-        """Server-push streaming dispatch: returns the ``RpcStream``."""
+        """Server-push streaming dispatch: returns the route-appropriate
+        ``RpcStream`` / ``FallbackRpcStream`` / ``RoutedRpcStream``."""
         if not self._spec.streaming:
             raise ChannelError(
                 f"{self._svc}.{self._spec.name} is not a streaming "
                 "method (declare it with @method(streaming=True))")
         return self._run(ClientCall(self._svc, self._spec, args,
-                                    overrides, self._conn, is_stream=True))
+                                    overrides, False, self._conn,
+                                    is_stream=True))
 
 
 def _client_final(call: ClientCall):
@@ -341,7 +508,8 @@ def _client_final(call: ClientCall):
     if spec.byref:
         # pool-page reference arguments resolve against the route the
         # connection actually took: pointer-pass in pod, one bulk
-        # page migration (then destination indices) across pods
+        # scope_copy migration (then destination indices) across pods.
+        # Resolution happens per dispatch, so a retry re-resolves.
         call.args = tuple(
             a.__byref_resolve__(conn)
             if hasattr(a, "__byref_resolve__") else a
@@ -353,23 +521,57 @@ def _client_final(call: ClientCall):
         kw.setdefault("sandboxed", True)
     if spec.deadline is not None:
         kw.setdefault("deadline", spec.deadline)
-    if spec.streaming:
-        stream = conn.invoke_stream(spec.fn_id, *call.args, **kw)
+    if call.is_stream or (spec.streaming and not call.is_future):
+        args = call.args
+        if spec.byval:
+            from .marshal import _args_to_plain
+            args = tuple(_args_to_plain(args))
+        stream = conn.invoke_stream(spec.fn_id, *args, **kw)
         if call.is_stream:
             return stream
-        # a sync dispatch of a streaming method buffers the whole chain
-        return list(stream)
+        # sync dispatch of a streaming method buffers the whole chain —
+        # the baseline arm of the TTFT comparison, and a convenience.
+        # A mid-chain failure is annotated with the delivered-chunk
+        # count: retry layers must never replay a partial stream.
+        out = []
+        try:
+            for v in stream:
+                out.append(v)
+        except ChannelError as e:
+            if out:
+                e.chunks_delivered = len(out)
+            raise
+        return out
+    if call.is_future:
+        args = call.args
+        if spec.byval:
+            # byval's contract is copy semantics — nothing in the request
+            # may pin a heap. Futures honor it by snapshotting GraphRef
+            # args to plain values at dispatch.
+            from .marshal import _args_to_plain
+            args = tuple(_args_to_plain(args))
+        return conn.invoke_async(spec.fn_id, *args, **kw)
+    if spec.byval:
+        serialized = getattr(conn, "invoke_serialized", None)
+        if serialized is not None:
+            return serialized(spec.fn_id, *call.args, **kw)
+        # a bare FallbackConnection is by-value natively
     return conn.invoke(spec.fn_id, *call.args, **kw)
 
 
 class ServiceStub:
-    """Client proxy for a service over any connection type — a CXL
-    ``Connection``, a ``FallbackConnection``, or a ``RoutedConnection``
-    (same-pod or cross-pod, §5.6: identical surface). Method proxies are
-    attributes; ``connection`` / ``close`` are the only reserved names."""
+    """Client proxy for a service over ANY connection type — plain CXL
+    ``Connection``, ``FallbackConnection``, or a ``RoutedConnection``
+    (same-pod or cross-pod, §5.6: identical surface). Method
+    proxies are attributes; ``connection`` / ``close`` are the only
+    reserved names."""
 
     def __init__(self, conn, sdef: ServiceDef, interceptors=()):
         icpts = tuple(interceptors)
+        if not any(isinstance(i, RetryInterceptor) for i in icpts):
+            # method-level `retry=` works out of the box; an explicit
+            # RetryInterceptor in `interceptors` takes over the policy
+            icpts = icpts + (RetryInterceptor(),)
         self._conn = conn
         self._def = sdef
         self._methods = {
@@ -388,3 +590,14 @@ class ServiceStub:
     def connection(self):
         """The underlying connection — the raw escape hatch."""
         return self._conn
+
+    @property
+    def definition(self) -> ServiceDef:
+        return self._def
+
+    def close(self) -> None:
+        self._conn.close()
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"<ServiceStub {self._def.name} over "
+                f"{type(self._conn).__name__}>")

@@ -44,6 +44,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..configs.global_config import global_config
 from ..core.channel import RPC, BusyWaitPolicy, ServerLoop
 from ..core.errors import AllocationError, ChannelError, Overloaded
 from ..core.orchestrator import Orchestrator
@@ -310,6 +311,9 @@ class ServeEngine:
         self.orch = Orchestrator()
         self.client_pid, self.server_pid = 11, 12
         self.conn_id = self.client_pid  # pool pages owned by the client
+        if quota_pages is None:
+            # default from the central config (None there = unlimited)
+            quota_pages = global_config.quota_pages
         if quota_pages is not None:
             # §5.4 page quota: an admit past it sheds typed Overloaded
             self.orch.set_page_quota(self.conn_id, int(quota_pages))

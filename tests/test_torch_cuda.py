@@ -1,10 +1,10 @@
-"""The port's CUDA kernels, its paged decode, its Mamba-2 prefill, its
-gemma3, MoE and jamba prefill and decode, and its training (the kernels'
-``autograd.Function``s, ``Model.loss_fn``'s gradients, train steps, the
-training CLI) on the card, held against the port's plain PyTorch
-versions on the same inputs. Needs a CUDA card
-and nvcc; skips without one. Imports nothing of jax, so it also runs on a
-machine with the card and no jax:
+"""The port's CUDA kernels, its paged decode, its serving engine in pod
+and across pods, its Mamba-2 prefill, its gemma3, MoE and jamba prefill
+and decode, and its training (the kernels' ``autograd.Function``s,
+``Model.loss_fn``'s gradients, train steps, the training CLI) on the
+card, held against the port's plain PyTorch versions on the same
+inputs. Needs a CUDA card and nvcc; skips without one. Imports nothing
+of jax, so it also runs on a machine with the card and no jax:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -386,6 +386,74 @@ def test_threaded_engine_on_card_streams_over_the_ring(dev):
     assert paged_attention.launches - n0 == cfg.num_layers * eng.decode_steps
     assert flash_prefill_cuda.launches - f0 == cfg.num_layers * 4
     assert eng.oob_events == 0 and eng.pool.stats()["sealed_pages"] == 0
+
+
+def _cross_pod_streams(cfg, model, prompts, max_new, threaded=True):
+    """One thread a prompt, each a stub in pod ``pod9``, streaming from a
+    threaded engine in ``pod0`` over the fallback link. Returns the token
+    lists, the engine, and each stub's connection."""
+    import threading
+
+    from repro_torch.serving import DecodeService
+
+    pc = PoolConfig(num_pages=64, page_tokens=8, max_pages_per_seq=8)
+    eng = ServeEngine(cfg, model, pc, max_active=4, serve_threaded=threaded,
+                      device=model.device)
+    free0 = eng.pool.heap.free_pages()
+    outs, conns, errors = [None] * len(prompts), [None] * len(prompts), []
+
+    def client(i):
+        try:
+            stub = eng.router.stub(eng.endpoint_name, DecodeService, pid=60 + i, pod="pod9")
+            conns[i] = stub.connection
+            outs[i] = list(stub.generate_stream.stream(prompts[i], max_new, timeout=120.0))
+        except Exception as e:   # surfaced below
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+            assert not t.is_alive()
+    finally:
+        eng.shutdown()
+    assert not errors, errors
+    assert eng.pool.heap.free_pages() == free0
+    assert eng.pool.stats()["sealed_pages"] == 0
+    return outs, eng, conns
+
+
+def test_cross_pod_streams_on_card_match_cpu(dev):
+    """Phase 40 (a) at the smoke size: four client threads in another pod
+    stream from a threaded engine on the card over the fallback link.
+    The transport is the link, the tokens equal the CPU engine's
+    cross-pod streams (a row may part only at a near-tie of the CPU's
+    logits), K3 launches L x 4 and K1 L x the decode steps, no sandbox
+    violation, and every page and seal comes back."""
+    cfg = _card_config()
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [list(range(1, 4 + 3 * i)) for i in range(4)]
+    want, _, _ = _cross_pod_streams(cfg, model, prompts, 6)
+    n0, f0 = paged_attention.launches, flash_prefill_cuda.launches
+    got, eng, conns = _cross_pod_streams(cfg, copy.deepcopy(model).to(dev), prompts, 6)
+    assert {c.transport for c in conns} == {"fallback"}
+    assert [c.target.n_calls for c in conns] == [1] * 4
+    assert paged_attention.launches - n0 == cfg.num_layers * eng.decode_steps
+    assert flash_prefill_cuda.launches - f0 == cfg.num_layers * 4
+    assert eng.oob_events == 0
+    tol = TOL[torch.bfloat16]
+    for prompt, a, b in zip(prompts, want, got):
+        assert len(b) == 6
+        k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            continue
+        toks = torch.tensor([prompt + a[:k]], dtype=torch.int32)
+        top2 = torch.topk(model.prefill(toks)[0][0].float(), 2).values.tolist()
+        assert top2[0] - top2[1] <= tol["atol"] + tol["rtol"] * abs(top2[0]), \
+            f"row parts at step {k} without a near-tie: {b} vs {a}"
 
 
 # -- K4: the SSD intra-chunk kernel ------------------------------------------

@@ -1,10 +1,12 @@
 """The port's serving engine over its RPC plane against the reference
 engine: the prefill → decode handoff through ``stub.attach`` on the
 shared-memory ring, ``decode.generate_stream`` over reply chains (inline
-and from a ``ServerLoop`` thread), and the ``PoolPages`` byref handoff in
-pod and across pods. Scenarios follow tests/test_serving.py (:64, :122,
-:160) and tests/test_serve_batching.py (:104, :143, :185-236, :266, :291,
-:315). Both engines run the 2-layer smoke yi-9b on the same fp32 weights
+and from a ``ServerLoop`` thread), the ``PoolPages`` byref handoff in
+pod and across pods, and a client in another pod streaming and posting
+``attach_remote`` futures over the fallback link. Scenarios follow
+tests/test_serving.py (:64, :122, :160), tests/test_serve_batching.py
+(:104, :143, :185-236, :266, :291, :315) and tests/test_streaming.py
+(:438). Both engines run the 2-layer smoke yi-9b on the same fp32 weights
 and prompts, so tokens must be equal exactly; handoff bytes, page ids,
 seal indices, migrated bytes and link counters must be equal too."""
 
@@ -24,6 +26,7 @@ from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.core.errors import ChannelError as JaxChannelError  # noqa: E402
 from repro.core.errors import Overloaded as JaxOverloaded  # noqa: E402
 from repro.core.fallback import DSMLink as JaxLink  # noqa: E402
+from repro.core.marshal import gather as R_gather  # noqa: E402
 from repro.core.orchestrator import Orchestrator as JaxOrchestrator  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro.serving import PagedKVPool as JaxPool  # noqa: E402
@@ -36,6 +39,7 @@ from repro.serving.paged_model import prefill_kv as jax_prefill  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core.errors import ChannelError, Overloaded  # noqa: E402
 from repro_torch.core.fallback import DSMLink  # noqa: E402
+from repro_torch.core.marshal import gather as T_gather  # noqa: E402
 from repro_torch.core.orchestrator import Orchestrator  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serving import (FN_ATTACH, DecodeService, PagedKVPool,  # noqa: E402
@@ -108,6 +112,28 @@ def test_fp32_prefill_logits_match_reference(lm):
 
 
 # -- the handoff over the ring (tests/test_serving.py:64) ----------------------
+def test_global_quota_pages_is_the_engines_default(lm, monkeypatch):
+    """``global_config.quota_pages`` is the engine's page quota when the
+    constructor is given none, and an explicit ``quota_pages`` wins."""
+    monkeypatch.setattr(sys.modules["repro.configs.global_config"].global_config,
+                        "quota_pages", 2)
+    monkeypatch.setattr(sys.modules["repro_torch.configs.global_config"].global_config,
+                        "quota_pages", 2)
+    got, wides = {}, _engines(lm, quota_pages=5)
+    for name, eng in _engines(lm).items():
+        with pytest.raises((JaxOverloaded, Overloaded), match="quota") as err:
+            list(eng.generate_tokens(list(range(1, 20)), 4))   # needs 3 pages
+        wide = wides[name]
+        got[name] = (eng.orch.page_quota(eng.conn_id), type(err.value).__name__,
+                     wide.orch.page_quota(wide.conn_id),
+                     len(list(wide.generate_tokens(list(range(1, 20)), 4))),
+                     _alloc_stats(eng.pool), _alloc_stats(wide.pool))
+        eng.shutdown()
+        wide.shutdown()
+    assert got["port"] == got["ref"]
+    assert got["port"][:4] == (2, "Overloaded", 5, 4)
+
+
 def test_handoff_is_pointer_sized_and_matches_reference(lm):
     """``_handoff`` goes through ``stub.attach`` over a "cxl" connection:
     the marshalled pointer set is under 200 bytes a request, byte for byte
@@ -469,3 +495,89 @@ def test_cross_pod_byref_migrates_once_and_accounts_bytes(lm):
         out[name] = (ref, pages, dst_pages, expected, link.bytes_moved - b0,
                      stub.connection.marshal_bytes)
     assert out["port"] == out["ref"]
+
+
+# -- decode.generate_stream across pods (the fallback link's staged chunk
+# flights; tests/test_streaming.py:438 on the served model) ------------------
+@pytest.mark.parametrize("threaded", [False, True], ids=["inline", "threaded"])
+def test_cross_pod_generate_stream_matches_reference(lm, threaded):
+    """A client in pod ``pod9`` streams from the engine in ``pod0``: the
+    stub rides the fallback link, the tokens equal the in-pod generation,
+    and the link's counters equal the reference engine's for the same
+    weights and calls. Pages and seals all come back."""
+    engs = _engines(lm, pool=_pool(num_pages=32), serve_threaded=threaded)
+    prompt = [3, 4, 5, 6]
+    out = {}
+    for name, eng in engs.items():
+        service = DecodeService if name == "port" else jax_engine.DecodeService
+        try:
+            solo = list(eng.generate_tokens(prompt, 6))
+            free0 = eng.pool.heap.free_pages()
+            stub = eng.router.stub(eng.endpoint_name, service, pid=77, pod="pod9")
+            assert stub.connection.transport == "fallback"
+            toks = list(stub.generate_stream.stream(prompt, 6, timeout=60.0))
+            again = list(stub.generate_stream.stream(prompt[:3], 4, window=2,
+                                                     timeout=60.0))
+            assert eng.pool.heap.free_pages() == free0
+            assert eng.pool.stats()["sealed_pages"] == 0
+            assert eng.scheduler.slots == []
+            target = stub.connection.target
+            out[name] = (toks, solo, again, target.stats(), target.n_stream_flights,
+                         stub.connection.marshal_bytes, eng.stream_steps)
+        finally:
+            if threaded:
+                eng.shutdown()
+    assert out["port"] == out["ref"]
+    toks, solo = out["port"][:2]
+    assert toks == solo and len(toks) == 6
+
+
+def test_cross_pod_attach_remote_futures_gather_like_the_reference(lm):
+    """Three prefills in pod ``ppod`` hand off to the decode worker in
+    ``dpod`` as ``attach_remote.future`` calls settled by one ``gather``:
+    one staged flight, one window seal flush, one put a KV transfer; the
+    decoded tokens equal the in-pod generation, and results, link
+    counters, page ids and seals equal the reference's."""
+    jcfg, _, tcfg, _ = lm
+    engs = _engines(lm, pod="dpod")
+    prompts = [[3, 4, 5, 6], [7, 8, 9], [10, 11, 12, 13, 14]]
+    out = {}
+    for name, eng in engs.items():
+        if name == "port":
+            src = PagedKVPool(eng.orch, tcfg, eng.pool.pc, 21, pod="ppod", device="cpu")
+            stub = eng.router.stub(eng.endpoint_name, DecodeService, pid=21, pod="ppod")
+            gather = T_gather
+        else:
+            src = JaxPool(eng.orch, jcfg, eng.pool.pc, owner_pid=21, pod="ppod")
+            stub = eng.router.stub(eng.endpoint_name, jax_engine.DecodeService,
+                                   pid=21, pod="ppod")
+            gather = R_gather
+        refs = [list(eng.generate_tokens(p, 6)) for p in prompts]
+        dst_free0 = eng.pool.heap.free_pages()
+        futs, src_pages = [], []
+        for i, prompt in enumerate(prompts):
+            pages, first = _prefill_pages(eng, src, 21, prompt, 6)
+            pp = PoolPages(src, pages) if name == "port" else \
+                JaxPoolPages(src, pages, backend="ref")
+            futs.append(stub.attach_remote.future(8000 + i, prompt, first, 6, pp))
+            src_pages.append(pages)
+        target = stub.connection.target
+        staged = (target.n_flushes, len(target._flight))
+        results = gather(futs, timeout=30.0)
+        adopted = [list(r.pages) for r in eng.active]
+        seals = [list(r.seal_idxs) for r in eng.active]
+        eng.run_until_drained()
+        outs = [eng.result(8000 + i) for i in range(len(prompts))]
+        assert eng.pool.heap.free_pages() == dst_free0
+        assert eng.pool.stats()["sealed_pages"] == 0
+        assert target.seals.pending_releases() == 0
+        for pages in src_pages:
+            src.free_seq(pages)
+        out[name] = (results, outs, refs, staged, target.stats(), target.n_flushes,
+                     adopted, seals, src.byref_bytes_out, eng.pool.byref_bytes_in,
+                     stub.connection.marshal_bytes)
+    assert out["port"] == out["ref"]
+    results, outs, refs, staged, stats = out["port"][:5]
+    assert results == [0, 0, 0] and outs == refs and staged == (0, 3)
+    assert (stats["one_sided_puts"], stats["window_seal_flushes"], stats["calls"]) \
+        == (2 + len(prompts), 1, len(prompts))
