@@ -213,6 +213,24 @@ before the result line is printed:
     prompts' in-pod ``generate_tokens`` outside near-ties; (c) the link's
     ``stats()`` for both, decode step ms and time to first token against
     phase 16's in-pod streams, the host ms of the flushes;
+41. the cluster plane at yi-9b's full width, printed right after phase
+    40 on its model and phase 3's prompts: a ``ServeEngine`` without a
+    serving thread of its own and a standby ``DecodeService`` (pid 13)
+    registered under its endpoint name, both channels served by one
+    lifecycle ``Endpoint``, clients polling at 200 µs, every lease
+    heartbeat through ``router.pump()``; (a) 8 ``balance="power2"``
+    stubs: each stream pins one replica, both replicas take streams,
+    tokens equal phase 16's outside near-ties; (b) 8 routed stubs on the
+    primary (pid 12) while a ``ChaosInjector`` lapses its lease half-way
+    through the tokens: one failover, each stream raises the mid-stream
+    ``ChannelError`` once and restarts on pid 13, final tokens equal
+    phase 16's outside near-ties, every page and seal back, then 3
+    submits hand off over pid 13's ring; (c) ``quiesce()`` sheds a new
+    stream with a typed ``Overloaded``, ``resume()`` serves it,
+    ``drain()`` and ``close()``; K3 48 x the prefills run (restarts and
+    submits included) and K1 48 x the decode steps; step ms at B=8
+    before and after the lapse, host ms from the lapse to each restarted
+    stream's first token, host µs of ``pump()`` and of the lapse's tick;
 
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
@@ -1952,6 +1970,301 @@ def phase_cross_pod(cfg, model, prompts, rpc, max_new, card, n=40):
         f"{len(b['near_tie_divergences'])} differ from in-pod generate_tokens, each at a "
         f"near-tie; handoffs {b['handoffs_ms']:.2f} ms, {b['flushes']} flush of "
         f"{b['flush_host_ms'][0]:.3f} ms on the host; link {b['link']}")
+    return info
+
+
+# ---------------------------------------------------------------------------
+# phase 41: the cluster plane (a decode endpoint with a standby replica)
+# ---------------------------------------------------------------------------
+def await_reaped(channel, conn, timeout=60.0):
+    """Wait until the serving thread has reaped ``conn``'s cancelled
+    streams (it sees the cancel word at its next pump), so a client's
+    re-wire never closes a generator that thread is running."""
+    deadline = time.monotonic() + timeout
+    while any(st.conn is conn for st in list(channel._streams)):
+        if time.monotonic() > deadline:
+            raise RuntimeError("the serving thread never reaped a cancelled stream")
+        time.sleep(0.001)
+
+
+def phase_failover(cfg, model, prompts, submits, rpc, max_new, card, n=41):
+    """yi-9b's decode endpoint with a standby replica: (a) balanced client
+    streams over both replicas; (b) a chaos lease lapse fails the endpoint
+    over mid-stream, the streams restart on the standby, then submits hand
+    off over its ring; (c) the lifecycle handle quiesces, resumes, drains
+    and closes."""
+    from repro_torch.core import (RPC, ChannelError, ChaosInjector, Endpoint, Fault,
+                                  FaultPlan, Overloaded)
+    from repro_torch.core.channel import BusyWaitPolicy
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serving import DecodeService, PoolConfig, ServeEngine
+
+    dev, L = model.device, cfg.num_layers
+    ref = rpc["streams"]["polling_200us_clients"]
+    total = len(prompts) * max_new
+
+    def zero():
+        paged_attention.launches = 0
+        flash_prefill_cuda.launches = 0
+
+    def read(steps0, prefills, what):
+        got = {"paged_attention": paged_attention.launches,
+               "flash_prefill": flash_prefill_cuda.launches,
+               "decode_steps": eng.decode_steps - steps0, "prefills": prefills}
+        if got["paged_attention"] != L * got["decode_steps"]:
+            fail(f"phase {n} {what}: paged_attention launched {got['paged_attention']} "
+                 f"times, expected {L} x {got['decode_steps']} decode steps")
+        if got["flash_prefill"] != L * prefills:
+            fail(f"phase {n} {what}: flash_prefill launched {got['flash_prefill']} times, "
+                 f"expected {L} x {prefills} prefills")
+        if eng.oob_events:
+            fail(f"phase {n} {what}: {eng.oob_events} sandbox violations")
+        return got
+
+    def leaks(what):
+        if eng.pool.heap.free_pages() != free0 or eng.pool.stats()["sealed_pages"] \
+                or eng.scheduler.slots:
+            fail(f"phase {n} {what}: pages, seals or slots leaked: {eng.pool.stats()}")
+
+    pc = PoolConfig(num_pages=512, page_tokens=16, max_pages_per_seq=64)
+    eng = ServeEngine(cfg, model, pc, max_active=8, pod="pod0", device=dev)
+    free0 = eng.pool.heap.free_pages()
+    name = eng.endpoint_name
+    standby = RPC(eng.orch, pid=13).open("/pod0/decode-standby", heap_pages=256)
+    standby.stream_pump_burst = 1
+    standby.serve(DecodeService(eng))
+    rec = eng.router.register(name, standby)
+    ep = Endpoint.serve([eng.channel, standby], policy=BusyWaitPolicy(fixed_sleep_us=5.0))
+    # the control plane: connects, stream starts and restarts, heartbeats
+    # and the fault take turns, so no lease-table walk races a mapping
+    cp_lock = threading.Lock()
+    pump_us, step_log = [], []
+    step_batch = eng.scheduler.step_batch
+
+    def logged_step():
+        t0 = time.perf_counter()
+        b = step_batch()
+        step_log.append((t0, time.perf_counter(), b))
+        return b
+
+    def poll():
+        return BusyWaitPolicy(fixed_sleep_us=200.0)
+
+    def run(client, what):
+        """One thread a prompt; this thread heartbeats every 50 ms."""
+        errors = []
+        barrier = threading.Barrier(len(prompts))
+
+        def body(i):
+            try:
+                client(i, barrier)
+            except Exception as e:   # reported below
+                errors.append((i, repr(e)))
+                barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        deadline = time.monotonic() + 600
+        while any(t.is_alive() for t in threads) and time.monotonic() < deadline:
+            with cp_lock:
+                t0 = time.perf_counter()
+                eng.router.pump()
+                pump_us.append(1e6 * (time.perf_counter() - t0))
+            time.sleep(0.05)
+        if any(t.is_alive() for t in threads):
+            fail(f"phase {n} {what}: a client thread did not finish")
+        if errors:
+            fail(f"phase {n} {what}: clients failed: {errors}")
+
+    def b8_ms(steps):
+        full = [(a, b) for a, b, bs in steps if bs == len(prompts)]
+        return (1e3 * (full[-1][1] - full[0][0]) / len(full), len(full)) if full else \
+            (None, 0)
+
+    info, launches = {}, {}
+    eng.scheduler.step_batch = logged_step
+    try:
+        # (a) balanced stubs: each stream pins the replica power2 picks
+        pins, outs = [None] * len(prompts), [None] * len(prompts)
+
+        def balanced(i, barrier):
+            with cp_lock:
+                stub = eng.router.stub(name, DecodeService, pid=70 + i, pod="pod0",
+                                       balance="power2", balance_seed=i)
+                conn = stub.connection
+                conn.prime()
+                for sub in conn._subs.values():
+                    sub.target.wait_policy = poll()
+            barrier.wait(timeout=60)
+            with cp_lock:
+                s = stub.generate_stream.stream(prompts[i], max_new, timeout=600.0)
+            pins[i] = rec.chain[conn._stream_pin].server_pid
+            outs[i] = list(s)
+
+        zero()
+        steps0 = eng.decode_steps
+        step_log.clear()
+        t0 = time.perf_counter()
+        run(balanced, "(a)")
+        wall_a = time.perf_counter() - t0
+        launches["balanced"] = read(steps0, len(prompts), "(a)")
+        if set(pins) != {12, 13}:
+            fail(f"phase {n} (a): the streams pinned {pins}; both replicas must take some")
+        differ_a = divergences(model, prompts, ref["tokens"], outs, f"phase {n} (a) stream")
+        leaks("(a)")
+        step_a, full_a = b8_ms(step_log)
+        info["balanced"] = {"pins": pins, "wall_s": wall_a, "decode_step_ms_b8": step_a,
+                            "steps_at_b8": full_a, "near_tie_divergences": differ_a,
+                            "tokens": outs}
+
+        # (b) routed stubs on the primary; the lease lapses half-way
+        gen0, fo0 = rec.generation, eng.router.n_failovers
+        inj = ChaosInjector(FaultPlan([Fault("lease_lapse", at=0.5, target=12)]),
+                            orch=eng.orch, router=eng.router)
+        state = {"delivered": 0, "t_lapse": None, "lapse_us": None}
+        restarts, first_after = [0] * len(prompts), [None] * len(prompts)
+        outs, served_by = [None] * len(prompts), [None] * len(prompts)
+
+        def failing_over(i, barrier):
+            with cp_lock:
+                stub = eng.router.stub(name, DecodeService, pid=80 + i, pod="pod0")
+                stub.connection.target.wait_policy = poll()
+            if stub.connection.target.channel is not eng.channel:
+                raise RuntimeError("a routed stub did not start on the primary")
+            barrier.wait(timeout=60)
+            while True:
+                old = stub.connection.target
+                with cp_lock:
+                    s = stub.generate_stream.stream(prompts[i], max_new, timeout=600.0)
+                    stub.connection.target.wait_policy = poll()
+                toks = []
+                try:
+                    for tok in s:
+                        if restarts[i] and not toks:
+                            first_after[i] = time.perf_counter()
+                        toks.append(tok)
+                        with cp_lock:
+                            state["delivered"] += 1
+                            t0 = time.perf_counter()
+                            if inj.poke(state["delivered"] / total):
+                                state["lapse_us"] = 1e6 * (time.perf_counter() - t0)
+                                state["t_lapse"] = t0
+                    break
+                except ChannelError as e:
+                    if restarts[i] or "failed over mid-stream" not in str(e):
+                        raise
+                    restarts[i] += 1
+                    await_reaped(old.channel, old)
+            outs[i] = toks
+            served_by[i] = stub.connection.target.channel.server_pid
+
+        zero()
+        steps0 = eng.decode_steps
+        step_log.clear()
+        t0 = time.perf_counter()
+        run(failing_over, "(b)")
+        wall_b = time.perf_counter() - t0
+        streams = read(steps0, 2 * len(prompts), "(b) streams")
+        if inj.n_fired != 1 or state["t_lapse"] is None:
+            fail(f"phase {n} (b): the lease lapse fired {inj.n_fired} times")
+        if rec.generation != gen0 + 1 or eng.router.n_failovers != fo0 + 1:
+            fail(f"phase {n} (b): generation {gen0} -> {rec.generation}, failovers "
+                 f"{fo0} -> {eng.router.n_failovers}; expected one failover")
+        if restarts != [1] * len(prompts) or set(served_by) != {13}:
+            fail(f"phase {n} (b): restarts {restarts}, served by {served_by}")
+        differ_b = divergences(model, prompts, ref["tokens"], outs,
+                               f"phase {n} (b) restarted stream")
+        leaks("(b) streams")
+        t_lapse = state["t_lapse"]
+        step_before, n_before = b8_ms([s for s in step_log if s[1] <= t_lapse])
+        step_after, n_after = b8_ms([s for s in step_log if s[0] >= t_lapse])
+        # three submits: prefill here, ``stub.attach`` re-wires to pid 13 and
+        # crosses to the Endpoint's serving thread, batched decode here
+        zero()
+        steps0 = eng.decode_steps
+        eng.serve_loop = ep.loop
+        try:
+            rids = [eng.submit(p, max_new) for p in submits]
+            eng.run_until_drained(timeout=600)
+        finally:
+            eng.serve_loop = None
+        launches["submits"] = read(steps0, len(submits), "(b) submits")
+        with cp_lock:
+            eng.router.pump()
+        if eng.conn.target.channel is not standby or eng.conn.failovers != 1 or \
+                any(len(eng.result(r)) != max_new for r in rids):
+            fail(f"phase {n} (b): the submits rode pid "
+                 f"{eng.conn.target.channel.server_pid} after {eng.conn.failovers} failovers")
+        leaks("(b) submits")
+        launches["failover_streams"] = streams
+        info["failover"] = {
+            "wall_s": wall_b, "restarts": restarts, "served_by": served_by,
+            "generation": [gen0, rec.generation], "lapse_at_token": inj.fired[0].at * total,
+            "decode_step_ms_b8_before": step_before, "steps_at_b8_before": n_before,
+            "decode_step_ms_b8_after": step_after, "steps_at_b8_after": n_after,
+            "lapse_to_first_token_ms": [1e3 * (t - t_lapse) for t in first_after],
+            "lapse_us": state["lapse_us"], "near_tie_divergences": differ_b,
+            "tokens": outs, "submit_tokens": [eng.result(r) for r in rids],
+            "router": eng.router.stats(),
+        }
+
+        # (c) the lifecycle: quiesce sheds typed, resume serves, drain, close
+        zero()
+        steps0 = eng.decode_steps
+        with cp_lock:
+            stub = eng.router.stub(name, DecodeService, pid=90, pod="pod0")
+            stub.connection.target.wait_policy = poll()
+        ep.quiesce()
+        try:
+            list(stub.generate_stream.stream(prompts[0], max_new, timeout=600.0))
+            fail(f"phase {n} (c): a quiesced endpoint admitted a stream")
+        except Overloaded as e:
+            shed = e.retry_after_s
+        if not shed or shed <= 0:
+            fail(f"phase {n} (c): the shed carried retry-after {shed}")
+        ep.resume()
+        toks = list(stub.generate_stream.stream(prompts[0], max_new, timeout=600.0))
+        differ_c = divergences(model, prompts[:1], ref["tokens"][:1], [toks],
+                               f"phase {n} (c) resumed stream")
+        drained = ep.drain(timeout_s=30.0)
+        ep.close()
+        launches["lifecycle"] = read(steps0, 1, "(c)")
+        if not drained or ep.state != "closed" or ep.n_shed < 1:
+            fail(f"phase {n} (c): drained {drained}, state {ep.state}, shed {ep.n_shed}")
+        leaks("(c)")
+        info["lifecycle"] = {"retry_after_s": shed, "n_shed": ep.n_shed,
+                             "near_tie_divergences": differ_c, "state": ep.state}
+    finally:
+        del eng.scheduler.step_batch
+        ep.close()
+    info["launches"] = launches
+    info["pump_us"] = {"median": float(np.median(pump_us)), "max": max(pump_us),
+                       "n": len(pump_us)}
+    a, b = info["balanced"], info["failover"]
+    k1 = sum(part["paged_attention"] for part in launches.values())
+    k3 = sum(part["flash_prefill"] for part in launches.values())
+    prefills = sum(part["prefills"] for part in launches.values())
+    steps = sum(part["decode_steps"] for part in launches.values())
+    log(f"phase {n} standby replica on {card}: (a) 8 power2 streams pinned pids {a['pins']}, "
+        f"B=8 step {a['decode_step_ms_b8']:.2f} ms, {len(a['near_tie_divergences'])} differ "
+        f"from phase 16 at near-ties; (b) the lease lapse at token "
+        f"{b['lapse_at_token']:.0f} of {total} failed {name} over to pid 13 (generation "
+        f"{b['generation'][0]} -> {b['generation'][1]}), {sum(b['restarts'])} streams "
+        f"restarted there, {len(b['near_tie_divergences'])} differ from phase 16 at "
+        f"near-ties, pages and seals back, 3 submits handed off over pid 13's ring; B=8 "
+        f"step {b['decode_step_ms_b8_before']:.2f} ms before the lapse, "
+        f"{b['decode_step_ms_b8_after']:.2f} ms after (phase 16's polling clients "
+        f"{ref['decode_step_ms_b8']:.2f}); lapse to restarted first token median "
+        f"{np.median(b['lapse_to_first_token_ms']):.1f} ms (max "
+        f"{max(b['lapse_to_first_token_ms']):.1f}); lapse tick {b['lapse_us']:.0f} µs, "
+        f"pump() median {info['pump_us']['median']:.0f} µs (max "
+        f"{info['pump_us']['max']:.0f}); (c) quiesced shed Overloaded(retry_after "
+        f"{info['lifecycle']['retry_after_s']} s), resumed, drained, closed; "
+        f"flash_prefill {k3} = {L} x {prefills} prefills, paged_attention {k1} = {L} x "
+        f"{steps} steps")
     return info
 
 
@@ -3950,6 +4263,7 @@ def main() -> int:
     rpc = phase_rpc(cfg, model, prompts, submits, outputs[: len(prompts)],
                     serve["decode_step_ms_b8"], MAX_NEW, card)
     cross_pod = phase_cross_pod(cfg, model, prompts, rpc, MAX_NEW, card)
+    failover = phase_failover(cfg, model, prompts, submits, rpc, MAX_NEW, card)
     del model
     torch.cuda.empty_cache()
     src_pool, src_pages, transfer = phase_transfer(cfg, gen)
@@ -4088,6 +4402,9 @@ def main() -> int:
             for name in sources},
         "yi-9b in pod, phase 40's reference": {
             name: cross_pod["in_pod_launches"].get(name, 0) for name in sources},
+        "yi-9b with a standby replica (phase 41)": {
+            name: sum(part.get(name, 0) for part in failover["launches"].values())
+            for name in sources},
         "mamba2-1.3b": {"ssd_intra_chunk": m_serve["launches"]},
         "gemma3-12b": {"flash_prefill": g_serve["launches"]},
         **{name: {"paged_attention": f["serve"]["launches"],
@@ -4125,7 +4442,7 @@ def main() -> int:
               "ssd_kernel": ssd, "mamba_serve": m_serve, "mamba_teacher_forced": m_tf,
               "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,
               "gemma_teacher_forced": g_tf, "gemma_times": g_times, "rpc": rpc,
-              "cross_pod": cross_pod,
+              "cross_pod": cross_pod, "failover": failover,
               "new_layouts": new, "families": fams, "family_times": fam_times,
               "moe_kernels": moe_k3, "moe": moes, "jamba_kernels": j_kernels, "jamba": jamba,
               "whisper_kernels": w_kernels, "whisper": whisper, "serve_cli": cli,

@@ -14,11 +14,11 @@ Usage::
 
 The knobs, their defaults and their ``REPRO_*`` environment overrides
 are the reference package's, for every knob that something in this
-package reads. The lease TTL and the two live-migration knobs are not
-here: the router's leases and ``migrate`` that read them are not ported
-yet, and a knob nothing reads would be accepted and do nothing, so
-``clone()`` refuses them. Stdlib only: ``repro_torch.core`` imports it
-at module load.
+package reads. ``lease_ttl_s`` is not here: nothing in either package
+reads it (the orchestrator's lease TTL is its ``lease_ttl`` argument,
+``DEFAULT_LEASE_TTL`` by default), and a knob nothing reads would be
+accepted and do nothing, so ``clone()`` refuses it. Stdlib only:
+``repro_torch.core`` imports it at module load.
 """
 
 from __future__ import annotations
@@ -87,6 +87,14 @@ class ReproConfig:
         ########## Orchestrator quotas (§5.4) ##########
         # default per-engine page quota (ServeEngine); None = unlimited
         self.quota_pages = None
+
+        ########## Live migration (snapshot/restore handoff) ##########
+        # budget for the source endpoint to settle in-flight work
+        self.migrate_drain_timeout_s = _env_float(
+            "REPRO_MIGRATE_DRAIN_TIMEOUT_S", 2.0)
+        # retry-after hint carried by Overloaded sheds while quiesced
+        self.migrate_retry_after_s = _env_float(
+            "REPRO_MIGRATE_RETRY_AFTER_S", 0.002)
 
     def clone(self, **overrides) -> "ReproConfig":
         """A copy with ``overrides`` applied; unknown names are errors."""

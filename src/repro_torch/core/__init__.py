@@ -1,7 +1,8 @@
 """Host-side RPCool machinery the serving plane runs on: heaps, seals,
 sandboxes, leases and quotas, and the RPC plane over them (descriptor
-rings, typed marshalling, futures and streams, services, the cluster
-router and the fallback transport). NumPy and plain Python: the rings,
+rings, typed marshalling, futures and streams, services, the fallback
+transport, and the cluster plane: router, replicas and failover,
+lifecycle, snapshot and migration, chaos). NumPy and plain Python: the rings,
 scopes and descriptor tables are host memory standing in for the CXL
 region.
 
@@ -13,7 +14,8 @@ Layers (bottom-up), each the reference package's module of the same name:
   sandbox     MPK-analogue pointer confinement, 14 cached sandboxes
   containers  heap-resident pointer-rich objects, deep_copy
   serial      the by-value wire format, and the SerialChannel baseline
-  orchestrator heap ids, leases, page quotas, pods, channel registry
+  orchestrator heap ids, leases, byte/request/page quotas, pods,
+              channel registry, failure GC
   channel     channels/connections/descriptor rings, serve loops
               (serve_once/serve_many/listen), ServerLoop
   marshal     typed zero-copy invoke, GraphRef/build_graph, futures and
@@ -22,10 +24,13 @@ Layers (bottom-up), each the reference package's module of the same name:
               stream), the interceptors
   fallback    two-node software-coherent link (RDMA analogue): staged
               flights, link streams, one-sided put/get, LinkPool stripes
-  router      ClusterRouter: endpoint names → CXL ring or fallback
-Still the reference's alone: router replicas, leases and failover,
-migration, balanced and wildcard connections, lifecycle, snapshot,
-chaos, and the ShmCheck sanitizer.
+  router      ClusterRouter: endpoint names → CXL ring or fallback,
+              lease heartbeats, replica failover, balanced and wildcard
+              stubs, live migration (migrate)
+  lifecycle   Endpoint handle: serve/quiesce/drain/close states
+  snapshot    snapshot/restore: service checkpoints → warm replicas
+  chaos       seeded fault plans and their injector
+Still the reference's alone: the ShmCheck sanitizer.
 """
 
 from . import addr, containers, marshal, serial
@@ -54,6 +59,7 @@ from .errors import (
     ChannelError,
     DeadlineExceeded,
     InvalidPointer,
+    LeaseExpired,
     Overloaded,
     OwnershipMiss,
     QuotaExceeded,
@@ -77,7 +83,26 @@ from .marshal import (
     gather,
 )
 from .orchestrator import Lease, Orchestrator
-from .router import ClusterRouter, RoutedConnection
+from .router import (
+    BalancedConnection,
+    ClusterRouter,
+    EndpointRecord,
+    MigrationReport,
+    RoutedConnection,
+    RoutedRpcFuture,
+    RoutedRpcStream,
+    WildcardConnection,
+)
+from .lifecycle import (
+    CLOSED,
+    DRAINED,
+    QUIESCED,
+    SERVING,
+    Endpoint,
+    QuiesceGate,
+)
+from .snapshot import RestoredEndpoint, Snapshot, restore, snapshot, sync_state
+from .chaos import KINDS, ChaosInjector, Fault, FaultPlan
 from .sandbox import MAX_CACHED, Sandbox, SandboxManager
 from .scope import Scope, ScopePool, create_scope
 from .seal import S_COMPLETE, S_RELEASED, S_SEALED, SealManager
@@ -106,14 +131,19 @@ __all__ = [
     "BusyWaitPolicy", "Channel", "Connection", "DescriptorRing",
     "RpcError", "ServerCtx", "ServerLoop",
     "AllocationError", "ChannelError", "DeadlineExceeded", "InvalidPointer",
-    "Overloaded", "OwnershipMiss", "QuotaExceeded", "RPCoolError",
+    "LeaseExpired", "Overloaded", "OwnershipMiss", "QuotaExceeded", "RPCoolError",
     "SandboxViolation", "SealedPageError", "SealViolation", "WaitTimeout",
     "DSMLink", "DSMNode", "FallbackConnection", "LinkPool",
     "PERM_SEALED", "SharedHeap",
     "ArgView", "FallbackRpcFuture", "FallbackRpcStream", "GraphRef",
     "RpcFuture", "RpcStream", "ServerStream", "build_graph", "gather",
     "Lease", "Orchestrator",
-    "ClusterRouter", "RoutedConnection",
+    "BalancedConnection", "ClusterRouter", "EndpointRecord",
+    "MigrationReport", "RoutedConnection", "RoutedRpcFuture",
+    "RoutedRpcStream", "WildcardConnection",
+    "CLOSED", "DRAINED", "Endpoint", "QUIESCED", "QuiesceGate", "SERVING",
+    "RestoredEndpoint", "Snapshot", "restore", "snapshot", "sync_state",
+    "ChaosInjector", "Fault", "FaultPlan", "KINDS",
     "MAX_CACHED", "Sandbox", "SandboxManager",
     "Scope", "ScopePool", "create_scope",
     "S_COMPLETE", "S_RELEASED", "S_SEALED", "SealManager",

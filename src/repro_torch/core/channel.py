@@ -794,6 +794,7 @@ class Channel:
 
     def __init__(self, orch: Orchestrator, name: str, server_pid: int,
                  heap_pages: int = 4096, page_size: int = 4096,
+                 shared_heap: bool = False,
                  config: Optional[ReproConfig] = None):
         self.orch = orch
         self.name = name
@@ -803,6 +804,8 @@ class Channel:
         self.server_pid = server_pid
         self.heap_pages = heap_pages
         self.page_size = page_size
+        self.shared_heap = shared_heap  # Fig. 4b channel-wide heap
+        self._shared: Optional[SharedHeap] = None
         self.functions: Dict[int, Callable[["ServerCtx", int], int]] = {}
         self.connections: List[Connection] = []
         self._event = threading.Event()
@@ -826,6 +829,12 @@ class Channel:
         # continuous batching) sets 1 so all live streams advance in
         # lockstep, one batched step per sweep.
         self.stream_pump_burst: Optional[int] = self.config.stream_pump_burst
+        # the served instance (recorded by serve()): what snapshot()
+        # checkpoints and the lifecycle Endpoint handle manages
+        self.served_instance = None
+        self.served_def = None
+        self.serve_interceptors: Tuple = ()
+        self.lifecycle = None  # back-reference set by lifecycle.Endpoint
         orch.register_channel(name, self)
 
     # -- server API (Fig. 6 left) -------------------------------------------
@@ -850,15 +859,26 @@ class Channel:
         from .service import service_def
         sdef = service_def(instance)
         sdef.serve(self, instance, interceptors)
+        self.served_instance = instance
+        self.served_def = sdef
+        self.serve_interceptors = tuple(interceptors)
         return sdef
 
     def accept(self, client_pid: int, ring_capacity: int = 256) -> Connection:
-        """Create the connection object (its own heap, Fig. 4a) for a
-        connecting client."""
-        heap = self.orch.create_heap(
-            self.heap_pages, self.page_size,
-            name=f"{self.name}/conn{len(self.connections)}")
-        self.orch.map_heap(self.server_pid, heap)
+        """Create the connection object for a connecting client: on its
+        own heap (Fig. 4a), or on the channel-wide heap (Fig. 4b)."""
+        if self.shared_heap:
+            if self._shared is None:
+                self._shared = self.orch.create_heap(
+                    self.heap_pages, self.page_size,
+                    name=f"{self.name}/shared")
+                self.orch.map_heap(self.server_pid, self._shared)
+            heap = self._shared
+        else:
+            heap = self.orch.create_heap(
+                self.heap_pages, self.page_size,
+                name=f"{self.name}/conn{len(self.connections)}")
+            self.orch.map_heap(self.server_pid, heap)
         self.orch.map_heap(client_pid, heap)
         conn = Connection(self, heap, client_pid, ring_capacity)
         self.connections.append(conn)
@@ -876,7 +896,8 @@ class Channel:
                     st.abort()
                     self._streams.remove(st)
             self.orch.unmap_heap(conn.client_pid, conn.heap.heap_id)
-            self.orch.unmap_heap(self.server_pid, conn.heap.heap_id)
+            if not self.shared_heap:
+                self.orch.unmap_heap(self.server_pid, conn.heap.heap_id)
 
     # Doorbell contract (no helper — Connection._post inlines it): a post
     # rings self._event only when self._parked is set, i.e. while listen()

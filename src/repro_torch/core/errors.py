@@ -8,6 +8,7 @@ raise; the reference's class names and meanings).
                          librpcool converts into an RPC error (§5.2).
 * ``InvalidPointer``   — wild/invalid GlobalAddr (bad heap, freed page).
 * ``QuotaExceeded``    — mapping a heap past the administrator quota (§5.4).
+* ``LeaseExpired``     — operating on a heap whose lease lapsed (§4.6).
 * ``ChannelError``     — connection/channel protocol misuse.
 * ``DeadlineExceeded`` — an RPC's propagated deadline lapsed.
 * ``WaitTimeout``      — a client wait lapsed before the reply landed.
@@ -44,6 +45,10 @@ class InvalidPointer(RPCoolError):
 
 
 class QuotaExceeded(RPCoolError):
+    pass
+
+
+class LeaseExpired(RPCoolError):
     pass
 
 

@@ -31,11 +31,11 @@ Method *names* map to **stable fn ids**: a hash of ``service.method``
 pinned into the upper half of the u32 fn space, so ids survive method
 reordering/insertion and never collide with hand-wired small integers.
 Per-method options: ``sealed``/``sandboxed`` (the §4.5/§4.4 protections),
-``byval`` (force copy semantics — the retry-safe form),
+``byval`` (force copy semantics — the failover-retry-safe form),
 ``deadline`` (seconds of budget, propagated into the descriptor),
-``retry`` (client retries of retry-safe calls), ``streaming`` (a
-generator handler) and ``byref`` (pool-page reference arguments resolved
-against the route).
+``retry`` (client retries across failover for retry-safe calls),
+``streaming`` (a generator handler) and ``byref`` (pool-page reference
+arguments resolved against the route).
 
 Both stub dispatch and handler dispatch run through a small interceptor
 chain (``intercept(call, proceed)``); ``StatsInterceptor``,
@@ -344,20 +344,32 @@ class DeadlineEnforcer(Interceptor):
 class AdmissionInterceptor(Interceptor):
     """Server-side admission control (§5.4): shed load with E_OVERLOAD
     *before* dispatch — a shed request costs one descriptor word, never
-    an unmarshal or a handler. The gate caps concurrently admitted
-    dispatches of the transport (``max_in_flight``; a stream stays
-    admitted until its chunk chain ends). ``ServiceDef.serve`` wires it
-    to the transport's pre-dispatch gate rather than the per-handler
-    chain. Shed replies carry the suggested retry-after (µs) in the
-    descriptor's ret word."""
+    an unmarshal or a handler. Two gates:
+
+    * ``max_in_flight`` caps concurrently admitted dispatches of the
+      transport (a stream stays admitted until its chunk chain ends).
+    * per-client-pid request quotas from the orchestrator's §5.4 table
+      (``orch.set_request_quota(pid, per_second)``), enforced as a token
+      bucket ``burst`` seconds of rate deep, on the orchestrator's
+      injected clock.
+
+    ``ServiceDef.serve`` wires it to the transport's pre-dispatch gate
+    rather than the per-handler chain. Shed replies carry the suggested
+    retry-after (µs) in the descriptor's ret word: the bucket's time to
+    one token for quota sheds, ``retry_after_s`` for in-flight sheds."""
 
     def __init__(self, max_in_flight: Optional[int] = None,
-                 retry_after_s: float = 0.005):
+                 orch=None, retry_after_s: float = 0.005,
+                 burst: float = 1.0):
         self.max_in_flight = max_in_flight
+        self.orch = orch
         self.retry_after_s = retry_after_s
+        self.burst = burst            # bucket depth, in seconds of rate
         self.in_flight = 0
+        self._buckets: Dict[int, List[float]] = {}  # pid -> [tokens, t]
         self.n_admitted = 0
         self.n_shed_inflight = 0
+        self.n_shed_quota = 0
 
     # -- the transport-facing gate (called before dispatch) --------------
     def admit(self, client_pid: int, fn_id: int) -> Optional[int]:
@@ -368,6 +380,23 @@ class AdmissionInterceptor(Interceptor):
                 self.in_flight >= self.max_in_flight:
             self.n_shed_inflight += 1
             return max(1, int(self.retry_after_s * 1e6))
+        orch = self.orch
+        if orch is not None:
+            rate = orch.request_quota(client_pid)
+            if rate is not None:
+                now = orch.clock()
+                cap = rate * self.burst
+                bucket = self._buckets.get(client_pid)
+                if bucket is None:
+                    bucket = self._buckets[client_pid] = [cap, now]
+                tokens = min(cap, bucket[0] + (now - bucket[1]) * rate)
+                if tokens < 1.0:
+                    bucket[0], bucket[1] = tokens, now
+                    self.n_shed_quota += 1
+                    if rate > 0:
+                        return max(1, int((1.0 - tokens) / rate * 1e6))
+                    return max(1, int(self.retry_after_s * 1e6))
+                bucket[0], bucket[1] = tokens - 1.0, now
         self.in_flight += 1
         self.n_admitted += 1
         return None
@@ -392,8 +421,8 @@ class RetryInterceptor(Interceptor):
     chunks cannot be un-delivered — ``_client_final`` annotates the
     failure with ``chunks_delivered``), and any attempt whose pause
     would overshoot the method deadline's worth of wall time. Futures
-    and stream iterators pass through: a failed future is settled, and
-    re-issued, by its caller."""
+    and stream iterators pass through: a routed future already
+    re-invokes across failover on settlement."""
 
     def __init__(self, default_retries: int = 0,
                  backoff_base_s: float = 0.001,
@@ -509,7 +538,8 @@ def _client_final(call: ClientCall):
         # pool-page reference arguments resolve against the route the
         # connection actually took: pointer-pass in pod, one bulk
         # scope_copy migration (then destination indices) across pods.
-        # Resolution happens per dispatch, so a retry re-resolves.
+        # Resolution happens per dispatch, so a retry after a failover
+        # re-resolves against the replica's pod.
         call.args = tuple(
             a.__byref_resolve__(conn)
             if hasattr(a, "__byref_resolve__") else a
@@ -547,7 +577,8 @@ def _client_final(call: ClientCall):
         if spec.byval:
             # byval's contract is copy semantics — nothing in the request
             # may pin a heap. Futures honor it by snapshotting GraphRef
-            # args to plain values at dispatch.
+            # args to plain values at dispatch, which also keeps the
+            # routed future failover-retryable.
             from .marshal import _args_to_plain
             args = tuple(_args_to_plain(args))
         return conn.invoke_async(spec.fn_id, *args, **kw)
@@ -562,7 +593,7 @@ def _client_final(call: ClientCall):
 class ServiceStub:
     """Client proxy for a service over ANY connection type — plain CXL
     ``Connection``, ``FallbackConnection``, or a ``RoutedConnection``
-    (same-pod or cross-pod, §5.6: identical surface). Method
+    (same-pod/cross-pod/failover, §5.6: identical surface). Method
     proxies are attributes; ``connection`` / ``close`` are the only
     reserved names."""
 

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels, its paged decode, its serving engine in pod
-and across pods, its Mamba-2 prefill, its gemma3, MoE and jamba prefill
-and decode, and its training (the kernels' ``autograd.Function``s,
+"""The port's CUDA kernels, its paged decode, its serving engine in pod,
+across pods and failing over to a standby replica, its Mamba-2 prefill,
+its gemma3, MoE and jamba prefill and decode, and its training (the kernels' ``autograd.Function``s,
 ``Model.loss_fn``'s gradients, train steps, the training CLI) on the
 card, held against the port's plain PyTorch versions on the same
 inputs. Needs a CUDA card and nvcc; skips without one. Imports nothing
@@ -443,6 +443,113 @@ def test_cross_pod_streams_on_card_match_cpu(dev):
     assert [c.target.n_calls for c in conns] == [1] * 4
     assert paged_attention.launches - n0 == cfg.num_layers * eng.decode_steps
     assert flash_prefill_cuda.launches - f0 == cfg.num_layers * 4
+    assert eng.oob_events == 0
+    tol = TOL[torch.bfloat16]
+    for prompt, a, b in zip(prompts, want, got):
+        assert len(b) == 6
+        k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            continue
+        toks = torch.tensor([prompt + a[:k]], dtype=torch.int32)
+        top2 = torch.topk(model.prefill(toks)[0][0].float(), 2).values.tolist()
+        assert top2[0] - top2[1] <= tol["atol"] + tol["rtol"] * abs(top2[0]), \
+            f"row parts at step {k} without a near-tie: {b} vs {a}"
+
+
+def _failover_streams(cfg, model, prompts, max_new):
+    """Phase 41 (b) at the smoke size: an engine without a serving thread
+    and a standby ``DecodeService`` (pid 13) under its endpoint name, both
+    served by one lifecycle ``Endpoint``; one routed stub a prompt streams
+    from the primary (pid 12) until a chaos fault lapses its lease half-way
+    through the tokens, then restarts once on the standby. The
+    orchestrator runs on an injected clock, so only the fault lapses a
+    lease. Returns the final tokens, the restarts, the serving pids and
+    the engine."""
+    import threading
+    import time
+
+    from repro_torch.core import RPC, ChannelError, ChaosInjector, Endpoint, Fault, FaultPlan
+    from repro_torch.serving import DecodeService
+
+    pc = PoolConfig(num_pages=64, page_tokens=8, max_pages_per_seq=8)
+    eng = ServeEngine(cfg, model, pc, max_active=len(prompts), device=model.device)
+    eng.orch.clock = lambda: 0.0
+    for pid in list(eng.router._renew_last):
+        eng.orch.renew(pid)
+    free0 = eng.pool.heap.free_pages()
+    standby = RPC(eng.orch, pid=13).open("/pod0/decode-standby", heap_pages=256)
+    standby.stream_pump_burst = 1
+    standby.serve(DecodeService(eng))
+    eng.router.register(eng.endpoint_name, standby)
+    ep = Endpoint.serve([eng.channel, standby])
+    inj = ChaosInjector(FaultPlan([Fault("lease_lapse", at=0.5, target=12)]),
+                        orch=eng.orch, router=eng.router)
+    lock, delivered = threading.Lock(), [0]
+    outs, restarts, served_by, errors = ([None] * len(prompts), [0] * len(prompts),
+                                         [None] * len(prompts), [])
+
+    def client(i):
+        try:
+            with lock:
+                stub = eng.router.stub(eng.endpoint_name, DecodeService, pid=80 + i)
+            while True:
+                old = stub.connection.target
+                with lock:
+                    s = stub.generate_stream.stream(prompts[i], max_new, timeout=120.0)
+                toks = []
+                try:
+                    for tok in s:
+                        toks.append(tok)
+                        with lock:
+                            delivered[0] += 1
+                            inj.poke(delivered[0] / (len(prompts) * max_new))
+                    break
+                except ChannelError as e:
+                    assert restarts[i] == 0 and "failed over mid-stream" in str(e)
+                    restarts[i] += 1
+                    deadline = time.monotonic() + 60.0
+                    while any(st.conn is old for st in list(old.channel._streams)):
+                        assert time.monotonic() < deadline
+                        time.sleep(0.001)
+            outs[i], served_by[i] = toks, stub.connection.target.channel.server_pid
+        except Exception as e:   # surfaced below
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120.0)
+            assert not t.is_alive()
+    finally:
+        ep.close()
+    assert not errors, errors
+    assert eng.router.n_failovers == 1 and inj.n_fired == 1
+    assert eng.pool.heap.free_pages() == free0
+    assert eng.pool.stats()["sealed_pages"] == 0 and eng.scheduler.slots == []
+    return outs, restarts, served_by, eng
+
+
+def test_standby_failover_on_card_matches_cpu(dev):
+    """Phase 41 (b) at the smoke size: four streams on the card's primary
+    each raise the mid-stream ``ChannelError`` once when its lease lapses
+    and restart on the standby; the restarted tokens equal the CPU
+    engine's under the same fault (a row may part only at a near-tie of
+    the CPU's logits), K3 launches L x 8 (four prefills and four
+    restarts) and K1 L x the decode steps, and every page and seal comes
+    back."""
+    cfg = _card_config()
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [list(range(1, 4 + 3 * i)) for i in range(4)]
+    want, r_cpu, s_cpu, _ = _failover_streams(cfg, model, prompts, 6)
+    n0, f0 = paged_attention.launches, flash_prefill_cuda.launches
+    got, restarts, served_by, eng = _failover_streams(cfg, copy.deepcopy(model).to(dev),
+                                                      prompts, 6)
+    assert restarts == r_cpu == [1] * 4 and served_by == s_cpu == [13] * 4
+    assert paged_attention.launches - n0 == cfg.num_layers * eng.decode_steps
+    assert flash_prefill_cuda.launches - f0 == cfg.num_layers * 8
     assert eng.oob_events == 0
     tol = TOL[torch.bfloat16]
     for prompt, a, b in zip(prompts, want, got):

@@ -581,3 +581,102 @@ def test_cross_pod_attach_remote_futures_gather_like_the_reference(lm):
     assert results == [0, 0, 0] and outs == refs and staged == (0, 3)
     assert (stats["one_sided_puts"], stats["window_seal_flushes"], stats["calls"]) \
         == (2 + len(prompts), 1, len(prompts))
+
+
+# -- a standby decode replica and a lease lapse mid-stream (Fig. 5a on the
+# served model; tests/test_streaming.py:447 and tests/test_failure_injection.py)
+def _await_reaped(channel, conn, timeout=60.0):
+    """Wait until the serving thread has reaped ``conn``'s cancelled
+    streams, so the client's re-wire never closes a generator that thread
+    is running."""
+    deadline = time.monotonic() + timeout
+    while any(st.conn is conn for st in list(channel._streams)):
+        assert time.monotonic() < deadline, "the cancelled stream was never reaped"
+        time.sleep(0.001)
+
+
+def _inject_lease_clock(eng):
+    """Put the engine's orchestrator on an injected clock frozen at 0 and
+    renew every tracked pid there, so no lease lapses by wall time and only
+    an explicit ``expire_leases`` makes one lapse at the next ``tick``."""
+    eng.orch.clock = lambda: 0.0
+    for pid in list(eng.router._renew_last):
+        eng.orch.renew(pid)
+        eng.router._renew_last[pid] = 0.0
+
+
+@pytest.mark.parametrize("threaded", [False, True], ids=["inline", "threaded"])
+def test_decode_endpoint_fails_over_to_a_standby_as_the_reference(lm, threaded):
+    """A standby ``DecodeService`` (pid 13) registered under the engine's
+    endpoint name joins the replica chain. The primary's lease lapses two
+    tokens into a stream: the stream raises the documented mid-stream
+    ``ChannelError`` once, the restart on the same stub lands on pid 13
+    with the tokens of a stream without the fault, the killed stream's
+    slot, pages and seals come back, and later handoffs go over pid 13's
+    ring. Tokens, exceptions, router stats, pool stats, page ids and seal
+    indices equal the reference engine's."""
+    import repro.core as R_core
+    import repro_torch.core as T_core
+
+    engs = _engines(lm, serve_threaded=threaded)
+    prompt = [3, 4, 5, 6]
+    kw = {"timeout": 60.0} if threaded else {"inline": True}
+    out = {}
+    for name, eng in engs.items():
+        core, service = (T_core, DecodeService) if name == "port" else \
+            (R_core, jax_engine.DecodeService)
+        try:
+            _inject_lease_clock(eng)
+            standby = core.RPC(eng.orch, pid=13).open("/pod0/decode-standby",
+                                                      heap_pages=256)
+            standby.stream_pump_burst = 1
+            standby.serve(service(eng))
+            rec = eng.router.register(eng.endpoint_name, standby)
+            if threaded:
+                eng.serve_loop.attach(standby)
+            stub = eng.router.stub(eng.endpoint_name, service, pid=40, pod="pod0")
+            start = _alloc_stats(eng.pool)
+            s = stub.generate_stream.stream(prompt, 6, **kw)
+            before = [next(s), next(s)]
+            slot = eng.scheduler.slots[0]
+            mid = (_alloc_stats(eng.pool), list(slot.pages), list(slot.seal_idxs))
+            old = stub.connection.target
+            eng.router.mark_crashed(12)
+            lapse = (eng.orch.expire_leases(12), eng.orch.tick(), rec.generation,
+                     rec.active_idx, eng.router.n_failovers)
+            errors = []
+            for _ in range(2):
+                try:
+                    next(s)
+                except Exception as e:   # compared across packages
+                    errors.append((type(e).__name__, str(e)))
+            if threaded:
+                _await_reaped(eng.channel, old)
+            restarted = list(stub.generate_stream.stream(prompt, 6, **kw))
+            after = (_alloc_stats(eng.pool), eng.scheduler.slots == [],
+                     stub.connection.failovers, stub.connection.target.channel is standby)
+            rids = [eng.submit(p, 4) for p in ([7, 8, 9], [1, 2], [9, 9, 9, 9, 9])]
+            eng.run_until_drained()
+            reqs = [eng.finished[r] for r in rids]
+            submits = ([r.out for r in reqs], [r.pages for r in reqs],
+                       [r.seal_idxs for r in reqs], eng.conn.target.channel is standby,
+                       eng.conn.failovers, eng.handoff_bytes, eng.oob_events)
+            gen = list(eng.generate_tokens([7, 8, 9], 4))
+            # a snapshot keeps no engine: a restored replica could not serve
+            skipped = core.snapshot(standby).skipped
+            out[name] = (before, mid, lapse, errors, restarted, start, after, submits, gen,
+                         eng.router.stats(), eng.pool.stats()["sealed_pages"],
+                         sorted(eng.router._dead_pids), skipped)
+        finally:
+            if threaded:
+                eng.shutdown()
+    assert out["port"] == out["ref"]
+    before, mid, lapse, errors, restarted, start, after = out["port"][:7]
+    solo = list(engs["port"].generate_tokens(prompt, 6))
+    assert restarted == solo and restarted[:2] == before
+    assert lapse[2:] == (1, 1, 1) and mid[0]["sealed_pages"] > 0
+    assert len(errors) == 2 and all(t == "ChannelError" and "mid-stream" in m
+                                    for t, m in errors)
+    assert after[0] == start and after[1:] == (True, 1, True)
+    assert out["port"][7][3] and out["port"][7][6] == 0 and out["port"][10] == 0
+    assert out["port"][12] == ["_engine"]
