@@ -231,6 +231,15 @@ before the result line is printed:
     submits included) and K1 48 x the decode steps; step ms at B=8
     before and after the lapse, host ms from the lapse to each restarted
     stream's first token, host µs of ``pump()`` and of the lapse's tick;
+42. yi-9b's served streams under the ShmCheck sanitizer, printed right
+    after phase 41 on its model and phase 3's prompts: a threaded
+    ``ServeEngine`` built inside a ``repro_torch.analysis.session()``
+    serves phase 16's 8 polling client streams; no finding, oob 0, every
+    page, seal and slot back, tokens equal phase 16's outside near-ties,
+    K3 48 x 8 and K1 48 x the decode steps; the tracer's event count by
+    kind and the host ms spent in its hooks a decode step, and the B=8
+    step in the order sanitized, unsanitized (an engine built outside any
+    session), unsanitized, sanitized;
 
 then a ``{"kernels": [...]}`` line (each kernel's launches summed over
 every path, and by path), the card line, and last
@@ -245,6 +254,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -2268,6 +2278,171 @@ def phase_failover(cfg, model, prompts, submits, rpc, max_new, card, n=41):
     return info
 
 
+# ---------------------------------------------------------------------------
+# phase 42: yi-9b's served streams under the ShmCheck sanitizer
+# ---------------------------------------------------------------------------
+def phase_shmcheck(cfg, model, prompts, rpc, max_new, card, n=42):
+    """Phase 16's threaded streams (8 clients with 200 µs polling naps, the
+    wait policy set on each stub's connection) from an engine built inside
+    a ``repro_torch.analysis.session()``: every heap the engine makes
+    attaches to the tracer, and the session must end with no finding,
+    oob 0, every page, seal and slot back and phase 16's tokens outside
+    near-ties. Four engines in turn, each shut down and dropped before the
+    next: sanitized, unsanitized (built outside any session, no tracer),
+    unsanitized, sanitized, so that each setting is read in both orders.
+    Each sanitized run also times the host seconds spent inside the
+    tracer's hooks. The hooks are host code: K1 and K3 run as without
+    them."""
+    from collections import Counter
+
+    from repro_torch.analysis import session
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.serving import PoolConfig, ServeEngine
+
+    dev, L = model.device, cfg.num_layers
+    ref = rpc["streams"]["polling_200us_clients"]
+    pc = PoolConfig(num_pages=512, page_tokens=16, max_pages_per_seq=64)
+
+    def streams(eng, what):
+        free0 = eng.pool.heap.free_pages()
+        step_log = []
+        step_batch = eng.scheduler.step_batch
+
+        def logged_step():
+            t0 = time.perf_counter()
+            b = step_batch()
+            step_log.append((t0, time.perf_counter(), b))
+            return b
+
+        eng.scheduler.step_batch = logged_step
+        paged_attention.launches = 0
+        flash_prefill_cuda.launches = 0
+        steps0 = eng.decode_steps
+        try:
+            sync(dev)
+            outs, first_s = stream_clients(eng, prompts, max_new, 50, client_sleep_us=200.0)
+            sync(dev)
+        finally:
+            del eng.scheduler.step_batch
+            eng.shutdown()
+        got = {"paged_attention": paged_attention.launches,
+               "flash_prefill": flash_prefill_cuda.launches,
+               "decode_steps": eng.decode_steps - steps0, "prefills": len(prompts)}
+        if got["paged_attention"] != L * got["decode_steps"]:
+            fail(f"phase {n} {what}: paged_attention launched {got['paged_attention']} "
+                 f"times, expected {L} x {got['decode_steps']} decode steps")
+        if got["flash_prefill"] != L * len(prompts):
+            fail(f"phase {n} {what}: flash_prefill launched {got['flash_prefill']} times, "
+                 f"expected {L} x {len(prompts)} prefills")
+        if eng.oob_events:
+            fail(f"phase {n} {what}: {eng.oob_events} sandbox violations")
+        if eng.pool.heap.free_pages() != free0 or eng.pool.stats()["sealed_pages"] \
+                or eng.scheduler.slots:
+            fail(f"phase {n} {what}: pages, seals or slots leaked: {eng.pool.stats()}")
+        full = [(t0, t1) for t0, t1, b in step_log if b == len(prompts)]
+        if not full:
+            fail(f"phase {n} {what}: no decode step ran all {len(prompts)} streams together")
+        return {"launches": got, "tokens": outs, "ttft_ms": [1e3 * t for t in first_s],
+                "steps_at_b8": len(full),
+                "decode_step_ms_b8": 1e3 * (full[-1][1] - full[0][0]) / len(full),
+                "near_tie_divergences": divergences(
+                    model, prompts, ref["tokens"], outs,
+                    f"phase {n} {what} stream, against phase 16's,")}
+
+    def hook_timer(tr):
+        """Wrap each hook the core calls on this tracer with a host timer:
+        the seconds spent inside the tracer, summed over every thread (an
+        inner hook that a hook calls is not counted twice)."""
+        cells, mine = [], threading.local()    # one [seconds, calls, depth] a thread
+
+        def timed(fn):
+            def hook(*a, **kw):
+                c = getattr(mine, "c", None)
+                if c is None:
+                    c = mine.c = [0.0, 0, 0]
+                    cells.append(c)
+                if c[2]:
+                    return fn(*a, **kw)
+                c[2] = 1
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    c[0] += time.perf_counter() - t
+                    c[1] += 1
+                    c[2] = 0
+            return hook
+
+        for name in dir(tr):
+            if name.startswith(("on_", "sync_", "checked_deref")) or name in (
+                    "alias_space", "reset_pages"):
+                setattr(tr, name, timed(getattr(tr, name)))
+        return lambda: (sum(c[0] for c in cells), sum(c[1] for c in cells))
+
+    def run(sanitized, k):
+        what = f"{'sanitized' if sanitized else 'unsanitized'} run {k}"
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if not sanitized:
+            eng = ServeEngine(cfg, model, pc, max_active=8, serve_threaded=True, device=dev)
+            if eng.pool.heap._tracer is not None or eng.conn.heap._tracer is not None:
+                fail(f"phase {n}: an engine built outside any session carries a tracer")
+            res = streams(eng, what)
+            res["wall_s"] = time.perf_counter() - t0
+            return res
+        with session(max_events=1 << 22) as tr:
+            acc = hook_timer(tr)
+            eng = ServeEngine(cfg, model, pc, max_active=8, serve_threaded=True, device=dev)
+            if eng.pool.heap._tracer is not tr or eng.conn.heap._tracer is not tr:
+                fail(f"phase {n}: the engine's heaps are not attached to the session")
+            res = streams(eng, what)
+        res["wall_s"] = time.perf_counter() - t0
+        if tr.findings:
+            fail(f"phase {n} {what}: ShmCheck reported {len(tr.findings)} finding(s):\n"
+                 + "\n".join(str(f) for f in tr.findings))
+        if len(tr.events) != tr.n_events:
+            fail(f"phase {n} {what}: the event ring dropped "
+                 f"{tr.n_events - len(tr.events)} events")
+        kinds = dict(sorted(Counter(rec[0] for rec in tr.events).items()))
+        for kind in ("alloc", "seal", "seal-release", "rel", "acq", "w", "r"):
+            if not kinds.get(kind):
+                fail(f"phase {n} {what}: no {kind!r} event: the hooks did not run ({kinds})")
+        steps = res["launches"]["decode_steps"]
+        hook_s, hook_calls = acc()
+        res.update(n_events=tr.n_events, event_kinds=kinds, summary=tr.summary(),
+                   hook_calls=hook_calls, hook_s=hook_s,
+                   hook_ms_per_step=1e3 * hook_s / max(steps, 1))
+        return res
+
+    # on, off, off, on: each order is read once, so an effect of the order
+    # shows as a difference between the two runs of one setting. Each engine
+    # is shut down (its serving thread joined) and dropped before the next.
+    runs = [run(s, k) for k, s in enumerate((True, False, False, True))]
+    on = [r for r in runs if "hook_s" in r]
+    off = [r for r in runs if "hook_s" not in r]
+    launches = {key: sum(r["launches"][key] for r in on) for key in on[0]["launches"]}
+    info = {"order": ["sanitized", "unsanitized", "unsanitized", "sanitized"],
+            "runs": runs, "launches": {"sanitized": launches}}
+    step = [f"{r['decode_step_ms_b8']:.2f}" for r in runs]
+    log(f"phase {n} ShmCheck over yi-9b's served streams on {card}: 8 client threads "
+        f"streamed {len(prompts)} x {max_new} tokens from engines built inside a "
+        f"session (runs 0 and 3) and outside any (runs 1 and 2); {on[0]['summary']}; "
+        f"events by kind {on[0]['event_kinds']}; oob 0, pages, seals and slots back "
+        f"in every run; streams that differ from phase 16 at near-ties "
+        f"{[len(r['near_tie_divergences']) for r in runs]}; flash_prefill "
+        f"{launches['flash_prefill']} = {L} x {launches['prefills']} prefills, "
+        f"paged_attention {launches['paged_attention']} = {L} x "
+        f"{launches['decode_steps']} steps over the sanitized runs; B=8 step ms "
+        f"on/off/off/on {step} (phase 16's polling clients "
+        f"{ref['decode_step_ms_b8']:.2f}); host ms inside the tracer's hooks per "
+        f"decode step, all threads summed, {[round(r['hook_ms_per_step'], 3) for r in on]} "
+        f"({[r['hook_calls'] for r in on]} hook calls); wall s "
+        f"{[round(r['wall_s'], 1) for r in runs]}")
+    return info
+
+
 def _kernel_name(mangled: str) -> str:
     """'..25flash_prefill_bf16_kernelILi256EE..' → 'flash_prefill_bf16_kernel<256>':
     the first length-prefixed identifier that ends in ``_kernel``."""
@@ -4264,6 +4439,7 @@ def main() -> int:
                     serve["decode_step_ms_b8"], MAX_NEW, card)
     cross_pod = phase_cross_pod(cfg, model, prompts, rpc, MAX_NEW, card)
     failover = phase_failover(cfg, model, prompts, submits, rpc, MAX_NEW, card)
+    shm = phase_shmcheck(cfg, model, prompts, rpc, MAX_NEW, card)
     del model
     torch.cuda.empty_cache()
     src_pool, src_pages, transfer = phase_transfer(cfg, gen)
@@ -4405,6 +4581,8 @@ def main() -> int:
         "yi-9b with a standby replica (phase 41)": {
             name: sum(part.get(name, 0) for part in failover["launches"].values())
             for name in sources},
+        "yi-9b under ShmCheck (phase 42)": {
+            name: shm["launches"]["sanitized"].get(name, 0) for name in sources},
         "mamba2-1.3b": {"ssd_intra_chunk": m_serve["launches"]},
         "gemma3-12b": {"flash_prefill": g_serve["launches"]},
         **{name: {"paged_attention": f["serve"]["launches"],
@@ -4442,7 +4620,7 @@ def main() -> int:
               "ssd_kernel": ssd, "mamba_serve": m_serve, "mamba_teacher_forced": m_tf,
               "mamba_times": m_times, "flash_kernel": flash, "gemma_serve": g_serve,
               "gemma_teacher_forced": g_tf, "gemma_times": g_times, "rpc": rpc,
-              "cross_pod": cross_pod, "failover": failover,
+              "cross_pod": cross_pod, "failover": failover, "shmcheck": shm,
               "new_layouts": new, "families": fams, "family_times": fam_times,
               "moe_kernels": moe_k3, "moe": moes, "jamba_kernels": j_kernels, "jamba": jamba,
               "whisper_kernels": w_kernels, "whisper": whisper, "serve_cli": cli,

@@ -30,7 +30,8 @@ Layers (bottom-up), each the reference package's module of the same name:
   lifecycle   Endpoint handle: serve/quiesce/drain/close states
   snapshot    snapshot/restore: service checkpoints → warm replicas
   chaos       seeded fault plans and their injector
-Still the reference's alone: the ShmCheck sanitizer.
+Every heap takes ``sanitize=`` and feeds the ShmCheck tracer of
+``repro_torch.analysis`` when one is attached (off by default).
 """
 
 from . import addr, containers, marshal, serial

@@ -655,6 +655,9 @@ class Connection:
             if ring.state_of(slot) < R_DONE:
                 continue   # still in flight; reap on a later pass
             p = self._abandoned.pop(slot)
+            tr = self.heap._tracer
+            if tr is not None:
+                tr.sync_acquire(("rep", id(ring), slot))
             ret, state, _status = ring.consume(slot)
             if p.sealed:
                 try:
@@ -698,6 +701,9 @@ class Connection:
             if sealed:
                 raise SealViolation("sealed call requires a scope (§4.5)")
             self._next_seq = seq + 1
+            tr = self.heap._tracer
+            if tr is not None:  # ShmCheck: post publishes the args
+                tr.sync_release(("req", id(ring), slot))
             ring.arr[slot] = (seq, fn_id,
                               (F_SANDBOXED if sandboxed else 0) | flags_extra,
                               arg_addr, 0, deadline_us, R_REQ, OK, 0, 0)
@@ -717,6 +723,9 @@ class Connection:
             flags |= F_SANDBOXED
 
         self._next_seq = seq + 1
+        tr = self.heap._tracer
+        if tr is not None:  # ShmCheck: post publishes the scope's bytes
+            tr.sync_release(("req", id(ring), slot))
         ring.post(slot, seq, fn_id, flags, arg_addr, seal_idx,
                   sc_start, sc_count, ret=deadline_us)
         ch = self.channel
@@ -725,6 +734,9 @@ class Connection:
         return slot, seal_idx
 
     def _complete(self, slot, sealed, seal_idx, batch_release):
+        tr = self.heap._tracer
+        if tr is not None:  # ShmCheck: consume observes the reply bytes
+            tr.sync_acquire(("rep", id(self.ring), slot))
         ret, state, status = self.ring.consume(slot)
         self.n_calls += 1
 
@@ -786,6 +798,9 @@ class Connection:
             if self._scope_pool is not None:
                 self._scope_pool.drain()
                 self._scope_pool = None
+            tr = self.heap._tracer
+            if tr is not None:
+                tr.on_conn_close(self.heap, self.client_pid, self.seals)
             self.channel._drop_connection(self)
 
 
@@ -1020,6 +1035,9 @@ class Channel:
     def _process(self, conn: Connection, slot: int) -> None:
         ring = conn.ring
         fn_id, flags, arg, seal_idx, sc_start, sc_count = ring.load_req(slot)
+        tr = conn.heap._tracer
+        if tr is not None:  # ShmCheck: the load observes the posted args
+            tr.sync_acquire(("req", id(ring), slot))
 
         fn = self.functions.get(fn_id)
         if fn is None:
@@ -1119,6 +1137,8 @@ class Channel:
                 conn.seals.mark_complete(seal_idx)
             except SealViolation:
                 pass
+        if tr is not None:  # ShmCheck: completion publishes the reply
+            tr.sync_release(("rep", id(ring), slot))
         ring.complete(slot, ret, state, status)
         if gate is not None:
             gate.release()
@@ -1294,6 +1314,10 @@ class ServerCtx:
         if self.sandbox is not None:
             return self.sandbox.read(a, nbytes)
         heap = self.conn.heap
+        if heap._tracer is not None:
+            # ShmCheck: an invalid pointer reaching an unsandboxed
+            # handler is the §4.4 wild-dereference bug class
+            return heap._tracer.checked_deref(heap, a, nbytes)
         return heap.read(a, nbytes)
 
     def write(self, a: int, data) -> None:

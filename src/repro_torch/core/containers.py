@@ -39,7 +39,7 @@ value built into the same scope gives the same bytes at the same offsets.
 from __future__ import annotations
 
 import struct
-from typing import Any, Iterator, List, Optional, Tuple, Union
+from typing import Any, Callable, Iterator, List, Optional, Tuple, Union
 
 from . import addr as gaddr
 from .errors import InvalidPointer
@@ -148,9 +148,23 @@ def build_vec(scope: Scope, vals: List[Value], pid: int = 0,
     return (T_VEC, a)
 
 
+def build_doc(scope: Scope, obj: dict, pid: int = 0,
+              fast: bool = False) -> int:
+    """Build a JSON-like document; returns the root GlobalAddr."""
+    tag, payload = build_value(scope, obj, pid, fast)
+    if tag != T_MAP:
+        raise TypeError("document root must be a dict")
+    return payload
+
+
 # ---------------------------------------------------------------------------
 # traversal (reader side — heap for trusted, Sandbox for untrusted)
 # ---------------------------------------------------------------------------
+class Reader:
+    """Anything with ``read(addr, nbytes) -> buffer``: SharedHeap, Sandbox,
+    ServerCtx, or a fallback DSMNode."""
+
+
 class FastReader:
     """Range-checked-ONCE raw reader — the MPK semantics, faithfully.
 
@@ -314,3 +328,22 @@ def deep_copy(src_reader, dst_scope: Scope, value: Value,
               pid: int = 0) -> Value:
     """Structurally copy an object graph into another heap's scope."""
     return build_value(dst_scope, to_python(src_reader, value), pid)
+
+
+# ---------------------------------------------------------------------------
+# predicate search over documents
+# ---------------------------------------------------------------------------
+def doc_matches(reader, root: int, path: List[str],
+                pred: Callable[[Any], bool]) -> bool:
+    """Walk ``path`` through nested maps from ``root`` and apply ``pred`` to
+    the leaf (pointer chasing in shared memory — no deserialization of the
+    rest of the document)."""
+    cur: Value = (T_MAP, root)
+    for comp in path:
+        if cur[0] != T_MAP:
+            return False
+        nxt = map_get(reader, cur[1], comp)
+        if nxt is None:
+            return False
+        cur = nxt
+    return pred(to_python(reader, cur))

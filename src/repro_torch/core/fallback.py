@@ -80,6 +80,11 @@ class DSMLink:
             SharedHeap(heap_id, num_pages, page_size, name="dsm/client"),
             SharedHeap(heap_id, num_pages, page_size, name="dsm/server"),
         ]
+        tr = self.replica[0]._tracer
+        if tr is not None:
+            # ShmCheck: the replicas are ONE logical heap — fold them
+            # into one shadow space so a migrated page keeps its identity
+            tr.alias_space(self.replica[1], self.replica[0])
         # allocator state must be common (one logical heap): client's heap
         # object is the source of truth for allocation; mirror page states.
         self.owner = np.full(num_pages, OWNER_CLIENT, dtype=np.uint8)
@@ -123,6 +128,11 @@ class DSMLink:
         copy, so no bytes and no latency go on the wire."""
         if pages:
             self.owner[np.asarray(pages)] = to
+            tr = self.replica[0]._tracer
+            if tr is not None:
+                # ownership hand-off is a synchronization barrier: the
+                # claimant fully overwrites, so prior accesses are dead
+                tr.reset_pages(self.replica[0], pages)
 
     @staticmethod
     def _runs(pages: List[int]) -> List[Tuple[int, int]]:
@@ -149,6 +159,11 @@ class DSMLink:
             dst[lo * ps : hi * ps] = src[lo * ps : hi * ps]
         self.owner[np.asarray(need)] = to
         self.migrate_rtts_saved += len(runs) - 1
+        tr = self.replica[0]._tracer
+        if tr is not None:
+            # a page migration is an ownership-transfer sync edge: the
+            # new owner sees every write the old owner published
+            tr.reset_pages(self.replica[0], need)
 
     def migrate(self, pages: List[int], to: int) -> int:
         """Fetch ``pages`` to node ``to`` (§5.6 page-fault service path).
@@ -430,6 +445,9 @@ class FallbackConnection:
             seal_idx = self.seals.seal(scope, holder=self.client_pid)
             flags |= F_SEALED
         self._next_seq = seq + 1
+        tr = self.client.heap._tracer
+        if tr is not None:
+            tr.sync_release(("req", id(ring), slot))
         ring.post(slot, seq, fn_id, flags, arg_addr, seal_idx,
                   sc_start, sc_count, ret=deadline_us)
         return slot, seal_idx
@@ -458,6 +476,9 @@ class FallbackConnection:
             raise
         # completion message back
         self.link.send_msg(RING_SLOT_BYTES)
+        tr = self.client.heap._tracer
+        if tr is not None:
+            tr.sync_acquire(("rep", id(ring), slot))
         ret, _state, _status = ring.consume(slot)
         if sealed:
             if batch_release:
@@ -635,6 +656,9 @@ class FallbackConnection:
             if self.ring.state_of(e.slot) < R_DONE:
                 still.append(e)
                 continue
+            tr = self.client.heap._tracer
+            if tr is not None:
+                tr.sync_acquire(("rep", id(self.ring), e.slot))
             ret, state, _status = self.ring.consume(e.slot)
             self._flight_errors.pop(e.slot, None)
             if e.sealed:
@@ -789,12 +813,19 @@ class FallbackConnection:
                     s.destroy()
             self._reply_free.clear()
             self._reply_live.clear()
+            tr = self.client.heap._tracer
+            if tr is not None:
+                tr.on_conn_close(self.client.heap, self.client_pid,
+                                 self.seals)
 
     # -- server half (shares the CXL-path descriptor format) --------------
     def _serve(self, slot: int) -> None:
         ring = self.ring
         (seq, fn_id, flags, arg, seal_idx, _ret, _st, _status,
          sc_start, sc_count) = ring.load(slot)
+        tr = self.client.heap._tracer
+        if tr is not None:
+            tr.sync_acquire(("req", id(ring), slot))
 
         fn = self.functions.get(fn_id)
         if fn is None:
@@ -837,6 +868,8 @@ class FallbackConnection:
             finally:
                 if flags & F_SEALED:
                     self.seals.mark_complete(seal_idx)
+            if tr is not None:
+                tr.sync_release(("rep", id(ring), slot))
             ring.complete(slot, ret, R_DONE, OK)
         finally:
             if gate is not None:
@@ -991,6 +1024,11 @@ class FallbackServerCtx:
         if self.sandbox is not None:
             self.sandbox.check(a, nbytes)
             return self.conn.server.read(a, nbytes)
+        tr = self.conn.server.heap._tracer
+        if tr is not None:
+            # ShmCheck: an invalid pointer reaching an unsandboxed
+            # handler is the §4.4 wild-dereference bug class
+            return tr.checked_deref_node(self.conn.server, a, nbytes)
         return self.conn.server.read(a, nbytes)
 
     def write(self, a: int, data) -> None:

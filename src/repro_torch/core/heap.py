@@ -11,7 +11,8 @@ Page metadata kept per page:
 * ``state``      FREE / USED
 * ``owner``      connection id of the allocator (0 == unowned/daemon)
 * ``perm``       permission word: bit SEALED ⇒ read-only for the sealing
-                 process (the paper's PTE write-protect).
+                 process (the paper's PTE write-protect), bit NOACCESS ⇒
+                 unmapped for everyone but the daemon.
 * ``key``        MPK protection-key analogue assigned by the sandbox
                  manager.
 
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ USED = 1
 
 # permission bits
 PERM_SEALED = 1 << 0   # write-protected for the sealing (sender) process
+PERM_NOACCESS = 1 << 1  # unmapped (daemon-only)
 
 DEFAULT_PAGE_SIZE = 4096
 
@@ -60,7 +62,8 @@ class SharedHeap:
     """A shared-memory heap with page-granular permissions."""
 
     def __init__(self, heap_id: int, num_pages: int,
-                 page_size: int = DEFAULT_PAGE_SIZE, name: str = ""):
+                 page_size: int = DEFAULT_PAGE_SIZE, name: str = "",
+                 sanitize: Optional[bool] = None):
         if num_pages <= 0 or num_pages > gaddr.MAX_PAGES:
             raise ValueError(f"num_pages out of range: {num_pages}")
         self.heap_id = heap_id
@@ -95,6 +98,15 @@ class SharedHeap:
         self._device_dirty = False
         self._device_epoch = -1   # perm_epoch of the installed mirror
 
+        # ShmCheck sanitizer (analysis/): ``sanitize`` True forces tracing,
+        # False opts out, None attaches only when a session is active or
+        # REPRO_SANITIZE is set. When off, this one reference is the
+        # entire cost of the instrumentation.
+        self._tracer = None
+        if sanitize is not False:
+            from ..analysis.runtime import maybe_attach
+            self._tracer = maybe_attach(self, sanitize)
+
     # ------------------------------------------------------------------
     # allocation
     # ------------------------------------------------------------------
@@ -115,6 +127,8 @@ class SharedHeap:
                     self.owner[start : start + count] = owner
                     self.perm[start : start + count] = 0
                     self.seal_holder[start : start + count] = 0
+                    if self._tracer is not None:
+                        self._tracer.on_alloc(self, start, count, owner)
                     return start
             raise AllocationError(
                 f"{self.name}: cannot allocate {count} contiguous pages "
@@ -135,6 +149,8 @@ class SharedHeap:
             # pages is void from here, even if the range is reallocated
             self.key[start : start + count] = 0
             self._insert_free(Extent(start, count))
+            if self._tracer is not None:
+                self._tracer.on_free(self, start, count)
 
     def _insert_free(self, ext: Extent) -> None:
         # keep the free list sorted + coalesced
@@ -160,6 +176,9 @@ class SharedHeap:
     def used_pages(self) -> int:
         return self.num_pages - self.free_pages()
 
+    def used_bytes(self) -> int:
+        return self.used_pages() * self.page_size
+
     # ------------------------------------------------------------------
     # permissions (seal substrate — SealManager drives this)
     # ------------------------------------------------------------------
@@ -172,6 +191,8 @@ class SharedHeap:
             self.perm[sl] |= PERM_SEALED
             self.seal_holder[sl] = holder
             self._bump_epoch()
+            if self._tracer is not None:
+                self._tracer.on_protect(self, start, count, holder)
 
     def unprotect_range(self, start: int, count: int) -> None:
         self.unprotect_ranges([(start, count)])
@@ -184,6 +205,8 @@ class SharedHeap:
                 self.perm[sl] &= ~np.uint8(PERM_SEALED)
                 self.seal_holder[sl] = 0
             self._bump_epoch()
+            if self._tracer is not None:
+                self._tracer.on_unprotect(self, ranges)
 
     def _bump_epoch(self) -> None:
         with self._lock:
@@ -254,6 +277,8 @@ class SharedHeap:
                     f"(RPC in flight — §4.5)"
                 )
         self._store(lo, hi, data)
+        if self._tracer is not None:
+            self._tracer.on_write(self, lo, hi, pid)
 
     def read(self, a: int, nbytes: int) -> np.ndarray:
         lo, hi = self._check_addr(a, nbytes)
@@ -263,6 +288,8 @@ class SharedHeap:
                 raise InvalidPointer(f"read of freed page in {self.name}")
         elif np.any(self.state[p0:p1] == FREE):
             raise InvalidPointer(f"read of freed page in {self.name}")
+        if self._tracer is not None:
+            self._tracer.on_read(self, lo, hi)
         return self.buf[lo:hi]
 
     def write_fast(self, a: int,
@@ -274,6 +301,8 @@ class SharedHeap:
         if hi > self.num_pages * self.page_size:
             raise InvalidPointer(f"write past end of {self.name}")
         self._store(lo, hi, data)
+        if self._tracer is not None:
+            self._tracer.on_write(self, lo, hi, 0)
 
     def addr_of_page(self, page: int, offset: int = 0) -> int:
         return gaddr.pack(self.heap_id, page, offset)
@@ -331,3 +360,10 @@ class SharedHeap:
             "sealed_pages": int((self.perm & PERM_SEALED != 0).sum()),
             "perm_epoch": self.perm_epoch,
         }
+
+    def __repr__(self) -> str:
+        s = self.stats()
+        return (
+            f"<SharedHeap {self.name} pages={s['used_pages']}/{s['pages']} "
+            f"sealed={s['sealed_pages']} epoch={s['perm_epoch']}>"
+        )

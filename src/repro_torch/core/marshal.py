@@ -376,6 +376,11 @@ def _pop_reply_scope(conn, nbytes: int) -> Tuple[Scope, bool]:
         free = conn._reply_free
         if free:
             s = free.pop()
+            tr = heap._tracer
+            if tr is not None:
+                # freelist hand-off: the recycler's accesses (the client
+                # reading the previous reply) happen-before this reuse
+                tr.sync_acquire(("scope", id(s)))
             s.reset()
             return s, True
         return create_scope(heap, REPLY_SCOPE_PAGES * heap.page_size), True
@@ -386,6 +391,9 @@ def _release_reply_scope(conn, scope: Scope) -> None:
     """The one push-or-destroy policy for reply scopes."""
     if scope.num_pages == REPLY_SCOPE_PAGES and \
             len(conn._reply_free) < _REPLY_FREELIST_MAX:
+        tr = _reply_heap(conn)._tracer
+        if tr is not None:
+            tr.sync_release(("scope", id(scope)))
         conn._reply_free.append(scope)
     elif scope.live:
         scope.destroy()
@@ -826,6 +834,12 @@ def _pop_chain_scope(conn, nbytes: int) -> Scope:
         s = create_scope(heap, REPLY_SCOPE_PAGES * heap.page_size)
     else:
         s = create_scope(heap, nbytes)
+    tr = heap._tracer
+    if tr is not None:
+        # chunk chains are synchronization fabric: the next-word flips
+        # race with the consumer's chase by design — ordering comes from
+        # the explicit ("chk", ...) publish/consume edges
+        tr.sync_pages(heap, *s.page_range())
     return s
 
 
@@ -1002,6 +1016,9 @@ class ServerStream:
 
     def _read_consumed(self) -> int:
         heap = _reply_heap(self.conn)
+        tr = heap._tracer
+        if tr is not None:
+            tr.sync_acquire(("cons", tr._space(heap), self._consumed_addr))
         return _U32.unpack(bytes(heap.read(self._consumed_addr, 4)))[0]
 
     # -- chunk emission --------------------------------------------------
@@ -1044,6 +1061,11 @@ class ServerStream:
         predecessor's ``next`` word (or the anchor's head)."""
         target = self.anchor if self.prev == 0 else self.prev
         heap = _reply_heap(self.conn)
+        tr = heap._tracer
+        if tr is not None:
+            # the pointer flip publishes the chunk: everything written
+            # into it happens-before the client's chase of this word
+            tr.sync_release(("chk", tr._space(heap), hdr))
         self.ctx._daemon_write(target, _U64.pack(hdr))
         self.prev = hdr
         if collect is not None:
@@ -1074,6 +1096,9 @@ class ServerStream:
         # the ret word mirrors the terminal chunk's value word (e.g. the
         # E_OVERLOAD retry-after µs) so a client that settles via the
         # slot sees the same typed hint as one that read the chain
+        tr = _reply_heap(self.conn)._tracer
+        if tr is not None:
+            tr.sync_release(("rep", id(self.ring), self.slot))
         self.ring.complete(self.slot, ret, state, status)
         self.abort()
 
@@ -1151,6 +1176,13 @@ class RpcStream:
         self._watch = gaddr.linear(anchor, heap.page_size) // 8
         self._consumed_addr = gaddr.add(anchor, _ANCHOR_CONSUMED_OFF,
                                         heap.page_size)
+        tr = heap._tracer
+        if tr is not None:
+            # the anchor page carries the head/consumed watch words —
+            # racy-by-design sync fabric, like the descriptor ring
+            tr.sync_pages(heap,
+                          gaddr.linear(anchor, heap.page_size)
+                          // heap.page_size, 1)
         self._prev = 0   # last consumed chunk (recycled with a lag of one)
         self._seq = 0
         self._state = _PENDING
@@ -1211,6 +1243,9 @@ class RpcStream:
     def _consume_chunk(self, addr: int):
         conn = self.conn
         heap = conn.heap
+        tr = heap._tracer
+        if tr is not None:
+            tr.sync_acquire(("chk", tr._space(heap), addr))
         try:
             (_nxt, cgen, seq, cflags, aux, vpayload) = _CHUNK.unpack(
                 bytes(heap.read(addr, _CHUNK.size)))
@@ -1233,6 +1268,9 @@ class RpcStream:
             self._seq += 1
             # open the server's bounded window (runtime metadata — a
             # daemon store, legal even while the anchor scope is sealed)
+            if tr is not None:
+                tr.sync_release(("cons", tr._space(heap),
+                                 self._consumed_addr))
             heap.write(self._consumed_addr, _U32.pack(self._seq))
             if self._prev:
                 # recycle lag of one: a chunk scope is reusable only once
@@ -1533,6 +1571,9 @@ class FallbackRpcStream:
                 val: int = 0) -> None:
         conn = self.conn
         conn.link.send_msg(CHUNK_HDR_BYTES)   # completion descriptor
+        tr = conn.client.heap._tracer
+        if tr is not None:
+            tr.sync_acquire(("rep", id(conn.ring), self.slot))
         _ret, _state, _status = conn.ring.consume(self.slot)
         self._release_seal_once()
         if self._prev:
@@ -1562,6 +1603,9 @@ class FallbackRpcStream:
         if ring.state_of(self.slot) < R_DONE:
             self._teardown(ChannelError("stream produced no chunks"))
             raise self._exc
+        tr = conn.client.heap._tracer
+        if tr is not None:
+            tr.sync_acquire(("rep", id(ring), self.slot))
         ret, state, status = ring.consume(self.slot)
         exc = conn._flight_errors.pop(self.slot, None)
         self._release_seal_once()
@@ -1830,6 +1874,9 @@ class FallbackRpcFuture:
             raise self._exc
         if conn.in_flight(self.slot):
             conn.flush()
+        tr = conn.client.heap._tracer
+        if tr is not None:
+            tr.sync_acquire(("rep", id(conn.ring), self.slot))
         ret, state, status = conn.ring.consume(self.slot)
         if self._sealed and not conn._consume_window_release(self._seal_idx):
             # the window flush did not cover this seal (error path, or

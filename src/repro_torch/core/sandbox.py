@@ -11,8 +11,8 @@ and unsandboxed shared regions) and recycles keys for uncached requests.
 Here a "key" is a row in a per-heap page→key table, and the PKRU word is
 a thread-local permission mask. Entering a *cached* sandbox only swaps the
 thread mask (O(1), like a PKRU write). Entering an *uncached* sandbox
-re-assigns keys to the page range and bumps the permission epoch. The
-sandbox temp heap and copied-in private variables are not ported.
+re-assigns keys to the page range, bumps the permission epoch, rebuilds the
+page bitmap and re-initializes the sandbox temp heap.
 
 The SIGSEGV path: host-side ``check`` raises ``SandboxViolation``; the
 paged-attention kernel cannot trap, so it **masks** the offending access
@@ -38,16 +38,38 @@ FIRST_SANDBOX_KEY = 2  # keys 2..15 → 14 cached sandboxes (paper §5.2)
 MAX_CACHED = NUM_KEYS - FIRST_SANDBOX_KEY
 
 
+class _TempHeap:
+    """Bump allocator for in-sandbox ``malloc`` redirection (§5.2);
+    contents are lost on exit."""
+
+    def __init__(self, size: int):
+        self.buf = np.empty(size, dtype=np.uint8)
+        self.bump = 0
+
+    def reset(self) -> None:
+        # pages are recycled, not scrubbed: allocations never read first
+        self.bump = 0
+
+    def alloc(self, n: int) -> memoryview:
+        off = (self.bump + 7) & ~7
+        if off + n > len(self.buf):
+            raise SandboxViolation("sandbox temp heap exhausted")
+        self.bump = off + n
+        return memoryview(self.buf[off : off + n])
+
+
 class Sandbox:
     """An entered sandbox: the thread's view while processing one RPC."""
 
     def __init__(self, mgr: "SandboxManager", key: int, start_page: int,
-                 num_pages: int, cached_hit: bool):
+                 num_pages: int, temp: _TempHeap, cached_hit: bool):
         self.mgr = mgr
         self.key = key
         self.start_page = start_page
         self.num_pages = num_pages
+        self.temp = temp
         self.cached_hit = cached_hit
+        self._vars: Dict[str, bytes] = {}
         self._active = False
 
     # -- SB_BEGIN / SB_END ------------------------------------------------
@@ -58,6 +80,7 @@ class Sandbox:
 
     def __exit__(self, *exc) -> None:
         self._active = False
+        self.temp.reset()  # temp-heap data is lost (§5.2)
         self.mgr._deactivate(self)
 
     # -- checked access (the MMU/MPK fault path) ---------------------------
@@ -83,11 +106,37 @@ class Sandbox:
         self.check(a, nbytes)
         return self.mgr.heap.read(a, nbytes)
 
+    def malloc(self, n: int) -> memoryview:
+        """libc malloc redirection — allocates from the temp heap."""
+        if not self._active:
+            raise SandboxViolation("malloc outside active sandbox")
+        return self.temp.alloc(n)
+
+    # -- copied-in private variables (SB_BEGIN(region, var0, var1...)) -----
+    def var(self, name: str) -> bytes:
+        try:
+            return self._vars[name]
+        except KeyError:
+            raise SandboxViolation(
+                f"access to private variable {name!r} not copied into sandbox"
+            )
+
+    @property
+    def page_size(self) -> int:
+        return self.mgr.heap.page_size
+
+    def device_bitmap(self):
+        """(num_pages,) uint8 mask for sandboxed kernels: 1 where a
+        block-table dereference is permitted."""
+        return self.mgr._bitmap_for(self)
+
+
 class SandboxManager:
     """Per-heap sandbox bookkeeping: key assignment + the 14-slot cache."""
 
-    def __init__(self, heap: SharedHeap):
+    def __init__(self, heap: SharedHeap, temp_heap_bytes: int = 1 << 16):
         self.heap = heap
+        self.temp_heap_bytes = temp_heap_bytes
         # cache: (start_page, num_pages) -> key
         self._cache: Dict[Tuple[int, int], int] = {}
         self._lru: List[Tuple[int, int]] = []
@@ -96,6 +145,8 @@ class SandboxManager:
         # keys whose binding was invalidated while still ACTIVE: they
         # return to the free list on their final deactivation
         self._orphaned: set = set()
+        self._temps: Dict[int, _TempHeap] = {}
+        self._bitmaps: Dict[int, np.ndarray] = {}  # key -> page bitmap
         self._tls = threading.local()
         self._lock = threading.RLock()
         # counters
@@ -103,12 +154,15 @@ class SandboxManager:
         self.cache_misses = 0
 
     # -- entry points -------------------------------------------------------
-    def enter(self, start_page: int, num_pages: int) -> Sandbox:
-        """SB_BEGIN(start_addr, size) — §5.2.
+    def enter(self, start_page: int, num_pages: int,
+              **copy_vars: bytes) -> Sandbox:
+        """SB_BEGIN(start_addr, size, var0, var1, ...) — §5.2.
 
         Fast path: the region already has a pre-assigned key (cached
-        sandbox). Slow path: recycle a key — evict an inactive sandbox and
-        reassign its key to the new page range (an epoch bump).
+        sandbox). Slow path: recycle a key — evict an inactive sandbox,
+        reassign its key to the new page range (an epoch bump), rebuild
+        the bitmap and temp heap. ``copy_vars`` are copied into the temp
+        heap and readable through ``Sandbox.var``.
         """
         rng = (start_page, num_pages)
         with self._lock:
@@ -128,7 +182,14 @@ class SandboxManager:
                 self.cache_misses += 1
                 cached = False
                 key = self._assign_key(rng)
-        return Sandbox(self, key, start_page, num_pages, cached_hit=cached)
+        sb = Sandbox(self, key, start_page, num_pages,
+                     self._temps[key], cached_hit=cached)
+        for name, v in copy_vars.items():
+            buf = bytes(v)
+            mv = sb.temp.alloc(len(buf))
+            mv[:] = buf
+            sb._vars[name] = buf
+        return sb
 
     def _assign_key(self, rng: Tuple[int, int]) -> int:
         start, count = rng
@@ -137,9 +198,13 @@ class SandboxManager:
         else:
             key = self._evict_one()
         # "assigning keys to pages has similar overheads as mprotect()" —
-        # a key-table write + an epoch bump
+        # a key-table write + an epoch bump + bitmap + temp heap rebuild
         self.heap.key[start : start + count] = key
         self.heap._bump_epoch()
+        bm = np.zeros(self.heap.num_pages, dtype=np.uint8)
+        bm[start : start + count] = 1
+        self._bitmaps[key] = bm
+        self._temps[key] = _TempHeap(self.temp_heap_bytes)
         self._cache[rng] = key
         self._lru.append(rng)
         return key
@@ -163,6 +228,8 @@ class SandboxManager:
         keys = self.heap.key[sl]
         keys[keys == key] = KEY_SHARED
         if self._active_keys.get(key, 0) == 0:
+            self._bitmaps.pop(key, None)
+            self._temps.pop(key, None)
             if key not in self._free_keys:
                 self._free_keys.append(key)
         else:
@@ -205,12 +272,18 @@ class SandboxManager:
             # guards someone else's pages
             if self._cache.get(rng) != sb.key or \
                     not self._still_valid(rng, sb.key):
+                if self.heap._tracer is not None:
+                    self.heap._tracer.on_sandbox_stale(
+                        self.heap, sb.key, sb.start_page, sb.num_pages)
                 raise SandboxViolation(
                     f"stale sandbox: key {sb.key} no longer guards pages "
                     f"[{sb.start_page},{sb.start_page + sb.num_pages})"
                 )
             self._active_keys[sb.key] = self._active_keys.get(sb.key, 0) + 1
         self._tls.mask = 1 << sb.key
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_sandbox_enter(
+                self.heap, sb.key, sb.start_page, sb.num_pages)
 
     def _deactivate(self, sb: Sandbox) -> None:
         with self._lock:
@@ -218,9 +291,13 @@ class SandboxManager:
             if self._active_keys[sb.key] == 0 and \
                     sb.key in self._orphaned:
                 self._orphaned.discard(sb.key)
+                self._bitmaps.pop(sb.key, None)
+                self._temps.pop(sb.key, None)
                 if sb.key not in self._free_keys:
                     self._free_keys.append(sb.key)
         self._tls.mask = (1 << KEY_PRIVATE) | (1 << KEY_SHARED)
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_sandbox_exit(self.heap, sb.key)
 
     def in_sandbox(self) -> bool:
         return self._thread_mask() & ~((1 << KEY_PRIVATE) | (1 << KEY_SHARED)) != 0
@@ -229,3 +306,9 @@ class SandboxManager:
         """Touching private memory while sandboxed → SIGSEGV analogue."""
         if self.in_sandbox():
             raise SandboxViolation("private-memory access inside sandbox")
+
+    def _bitmap_for(self, sb: Sandbox) -> np.ndarray:
+        return self._bitmaps[sb.key]
+
+    def cached_regions(self) -> int:
+        return len(self._cache)

@@ -36,6 +36,8 @@ class Scope:
         self.owner = owner
         self._bump = 0  # byte offset within the scope
         self._live = True
+        if heap._tracer is not None:
+            heap._tracer.on_scope_create(self)
 
     # -- geometry ------------------------------------------------------
     @property
@@ -59,6 +61,8 @@ class Scope:
     # -- allocation ----------------------------------------------------
     def alloc(self, nbytes: int) -> int:
         """Bump-allocate ``nbytes`` in the scope; returns a GlobalAddr."""
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_scope_use(self, "alloc")
         if not self._live:
             raise InvalidPointer("allocation in destroyed scope")
         off = _align(self._bump)
@@ -76,6 +80,16 @@ class Scope:
         self.heap.write(a, data, pid=pid)
         return a
 
+    def write_u64(self, values: List[int], pid: int = 0) -> int:
+        return self.write_bytes(np.asarray(values, dtype="<u8"), pid)
+
+    def view(self) -> np.ndarray:
+        """Raw ndarray view of the scope's bytes (zero-copy fill path)."""
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_scope_use(self, "view")
+        lo = self.start_page * self.heap.page_size
+        return self.heap.buf[lo : lo + self.size_bytes]
+
     def used_bytes(self) -> int:
         return self._bump
 
@@ -92,10 +106,18 @@ class Scope:
         if self._live:
             self.heap.free_extent(self.start_page, self.num_pages)
             self._live = False
+            if self.heap._tracer is not None:
+                self.heap._tracer.on_scope_destroy(self)
 
     @property
     def live(self) -> bool:
         return self._live
+
+    def __repr__(self) -> str:
+        return (
+            f"<Scope heap={self.heap.heap_id} pages=[{self.start_page},"
+            f"{self.start_page + self.num_pages}) used={self._bump}B>"
+        )
 
 
 def create_scope(heap: SharedHeap, size_bytes: int, owner: int = 0) -> Scope:
@@ -149,6 +171,8 @@ class ScopePool:
         if self._free:
             s = self._free.pop()
             s.reset()
+            if self.heap._tracer is not None:
+                self.heap._tracer.on_pool_pop(s)
             return s
         if self._created >= self.max_scopes:
             raise AllocationError("scope pool exhausted")
@@ -160,12 +184,16 @@ class ScopePool:
         if scope.heap is not self.heap or scope.num_pages != self.scope_pages:
             raise InvalidPointer("scope returned to wrong pool")
         self._free.append(scope)
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_pool_push(scope)
 
     def push_sealed(self, scope: Scope, seal_idx: int) -> None:
         """Return a scope whose batched seal release is still pending."""
         if self.seals is None:
             raise InvalidPointer("push_sealed on a pool without a SealManager")
         self._pending.append((scope, self.seals.flush_gen))
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_pool_push(scope)
 
     def _reclaim(self) -> None:
         gen = self.seals.flush_gen

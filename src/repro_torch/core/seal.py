@@ -121,6 +121,9 @@ class SealManager:
             self._state[idx % self.capacity] = S_SEALED
             self.n_seals += 1
             self.n_fast_seals += 1
+            if self.heap._tracer is not None:
+                self.heap._tracer.on_seal(self.heap, idx, start, count,
+                                          holder)
             return idx
         idx = self._next_seq
         self._next_seq += 1
@@ -133,6 +136,8 @@ class SealManager:
         self._write_desc(idx, idx, start, count, holder, S_SEALED)
         self.heap.protect_range(start, count, holder)
         self.n_seals += 1
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_seal(self.heap, idx, start, count, holder)
         return idx
 
     def release(self, idx: int, holder: int) -> None:
@@ -143,6 +148,9 @@ class SealManager:
         self.heap.unprotect_range(start, count)
         self._write_desc(idx, seq, start, count, h, S_RELEASED)
         self.n_releases += 1
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_seal_release(self.heap, idx, holder,
+                                              queued=False)
 
     def release_batched(self, idx: int, holder: int) -> bool:
         """Queue a release; flush (one epoch bump) at the batch threshold.
@@ -155,6 +163,9 @@ class SealManager:
         self._reusable[(start, count, h)] = ent
         self._queued[idx] = ent
         self._pending_live += 1
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_seal_release(self.heap, idx, holder,
+                                              queued=True)
         if self._pending_live >= self.batch_threshold:
             self.flush()
             return True
@@ -188,6 +199,8 @@ class SealManager:
                 self._write_desc(idx, seq, start, count, h, S_RELEASED)
         self.n_releases += len(live)
         self.n_batch_flushes += 1
+        if live and self.heap._tracer is not None:
+            self.heap._tracer.on_seal_flush(self.heap, [e[0] for e in live])
         self._pending.clear()
         self._reusable.clear()
         self._queued.clear()
@@ -201,6 +214,8 @@ class SealManager:
         if h != holder:
             raise SealViolation(f"pid {holder} releasing seal held by {h}")
         if state == S_RELEASED:
+            if self.heap._tracer is not None:
+                self.heap._tracer.on_double_release(self.heap, idx, holder)
             raise SealViolation(f"double release of seal {idx}")
         if state != S_COMPLETE:
             # Fig. 8 step 8: verify the RPC is complete.
@@ -212,6 +227,8 @@ class SealManager:
     def _check_not_queued(self, idx: int) -> None:
         ent = self._queued.get(idx)
         if ent is not None and ent[5]:
+            if self.heap._tracer is not None:
+                self.heap._tracer.on_double_release(self.heap, idx, ent[4])
             raise SealViolation(
                 f"double release of seal {idx}: already queued for "
                 "batched release"
@@ -229,6 +246,8 @@ class SealManager:
             if not (start <= want_start
                     and want_start + want_count <= start + count):
                 return False
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_seal_check(self.heap, idx)
         return True
 
     def mark_complete(self, idx: int) -> None:
@@ -237,6 +256,8 @@ class SealManager:
         if seq != idx or state != S_SEALED:
             raise SealViolation(f"completing non-sealed descriptor {idx}")
         self._state[idx % self.capacity] = S_COMPLETE
+        if self.heap._tracer is not None:
+            self.heap._tracer.on_seal_complete(self.heap, idx)
 
     # -- introspection ------------------------------------------------------
     def pending_releases(self) -> int:

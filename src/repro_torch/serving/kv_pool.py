@@ -119,6 +119,26 @@ class PagedKVPool:
             raise
         return pages
 
+    def extend_seq(self, pages: List[int], n_tokens: int,
+                   conn_id: int) -> List[int]:
+        """Grow ``pages`` in place to cover ``n_tokens``; a failed growth
+        leaves the list exactly as it was."""
+        need = max(1, -(-n_tokens // self.pc.page_tokens))
+        if need > self.pc.max_pages_per_seq:
+            raise ValueError("sequence exceeds max_pages_per_seq")
+        if need > len(pages):
+            self._check_page_quota(conn_id, need - len(pages))
+        grown = 0
+        try:
+            while len(pages) < need:
+                pages.append(self.heap.alloc_pages(1, owner=conn_id))
+                grown += 1
+        except AllocationError:
+            for _ in range(grown):
+                self.heap.free_extent(pages.pop(), 1)
+            raise
+        return pages
+
     def free_seq(self, pages: List[int]) -> None:
         for p in pages:
             self.heap.free_extent(p, 1)
@@ -163,6 +183,19 @@ class PagedKVPool:
         for pool, c in ((self.k, cache_k), (self.v, cache_v)):
             blocks = F.pad(c, (0, 0, 0, 0, 0, pad)).to(pool.dtype)
             pool.index_copy_(1, idx, blocks.reshape(L, nP, T, *c.shape[2:]))
+
+    def write_token(self, k_new, v_new, block_tab, pos) -> None:
+        """Insert one decoded token's KV. k_new/v_new: (L, B, Hkv, D);
+        block_tab: (B, MAXP) i32; pos: (B,) i32 (the slot being written)."""
+        T = self.pc.page_tokens
+        tab = torch.as_tensor(block_tab, device=self.device).long()
+        pos = torch.as_tensor(pos, device=self.device).long()
+        page = tab.gather(1, (pos // T)[:, None])[:, 0]        # (B,)
+        slot = pos % T
+        # advanced-index write: (L, B, Hkv, D) lands at [:, page_b, slot_b]
+        for pool, new in ((self.k, k_new), (self.v, v_new)):
+            pool[:, page, slot] = torch.as_tensor(new).to(self.device,
+                                                          pool.dtype)
 
     def stats(self) -> Dict[str, int]:
         return self.heap.stats()
@@ -236,15 +269,24 @@ class PoolPages:
         self.pages = list(pages)
         self.last_moved_bytes = 0
 
+    def _server_pid(self, conn) -> int:
+        # a RoutedConnection wraps the live target; bare connections carry
+        # server_pid directly
+        target = getattr(conn, "target", None) or conn
+        pid = getattr(target, "server_pid", None)
+        if pid is None:
+            raise ChannelError(
+                "byref argument needs a connection with a server pid "
+                "(Connection / FallbackConnection / RoutedConnection)")
+        return pid
+
     def __byref_resolve__(self, conn) -> List[int]:
         if getattr(conn, "transport", None) in (None, "cxl"):
             # shared coherence domain: pointer passing, nothing copied
             self.last_moved_bytes = 0
             return list(self.pages)
-        # a RoutedConnection wraps the live FallbackConnection
-        target = getattr(conn, "target", None) or conn
         orch = self.pool.orch
-        pod = orch.pod_of(target.server_pid)
+        pod = orch.pod_of(self._server_pid(conn))
         if pod is None:
             raise ChannelError(
                 "cross-pod byref dispatch but the serving pid has no pod "
@@ -255,10 +297,11 @@ class PoolPages:
         # one bulk transfer for the whole page set
         dst_pages = dst_pool.alloc_seq(
             len(self.pages) * dst_pool.pc.page_tokens, dst_pool.owner_pid)
+        target = getattr(conn, "target", None) or conn
         try:
             self.last_moved_bytes = transfer_pages_cross_pod(
                 self.pool, dst_pool, self.pages, dst_pages,
-                link=target.link)
+                link=getattr(target, "link", None))
         except BaseException:
             dst_pool.free_seq(dst_pages)
             raise

@@ -1123,19 +1123,6 @@ def test_pump_timing_stays_host_side(pkg):
     assert orch.live_leases() == 2 * 32
 
 
-# what the port still leaves to the reference alone: ROADMAP Queue 1 item 6c
-# (ShmCheck's modules live outside core/; these are core's leftovers)
-NOT_YET_PORTED = {
-    "containers.py": {"Reader", "build_doc", "doc_matches"},
-    "heap.py": {"PERM_NOACCESS", "SharedHeap.__repr__", "SharedHeap.used_bytes"},
-    "sandbox.py": {"Sandbox.device_bitmap", "Sandbox.malloc", "Sandbox.page_size",
-                   "Sandbox.var", "SandboxManager._bitmap_for",
-                   "SandboxManager.cached_regions", "_TempHeap", "_TempHeap.__init__",
-                   "_TempHeap.alloc", "_TempHeap.reset"},
-    "scope.py": {"Scope.__repr__", "Scope.view", "Scope.write_u64"},
-}
-
-
 def _definitions(path):
     """Module-level functions, classes, their methods and assigned names."""
     import ast
@@ -1152,16 +1139,33 @@ def _definitions(path):
     return out
 
 
-def test_every_core_definition_has_a_counterpart_outside_6c():
+def _missing(*rel):
+    """Definitions of the reference's ``rel`` (a package directory or one
+    module) that the port's counterpart lacks, by module."""
     from pathlib import Path
 
-    ref_dir = Path(R.__file__).parent
-    port_dir = Path(T.__file__).parent
+    ref = Path(R.__file__).parent.parent.joinpath(*rel)
+    port = Path(T.__file__).parent.parent.joinpath(*rel)
     missing = {}
-    for path in sorted(ref_dir.glob("*.py")):
-        port = port_dir / path.name
-        assert port.exists(), f"no counterpart for core/{path.name}"
-        gone = _definitions(path) - _definitions(port)
+    for path in sorted(ref.glob("*.py")) if ref.is_dir() else [ref]:
+        other = port / path.name if ref.is_dir() else port
+        assert other.exists(), f"no counterpart for {path}"
+        gone = _definitions(path) - _definitions(other)
         if gone:
             missing[path.name] = gone
-    assert missing == NOT_YET_PORTED
+    return missing
+
+
+def test_every_core_definition_has_a_counterpart():
+    """Nothing of the reference's ``core/`` is left to it alone."""
+    assert _missing("core") == {}
+
+
+def test_every_analysis_definition_has_a_counterpart():
+    """ShmCheck (``analysis/``): every module, function, class, method
+    and assigned name."""
+    assert _missing("analysis") == {}
+
+
+def test_every_kv_pool_definition_has_a_counterpart():
+    assert _missing("serving", "kv_pool.py") == {}

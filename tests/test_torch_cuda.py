@@ -1,6 +1,7 @@
 """The port's CUDA kernels, its paged decode, its serving engine in pod,
-across pods and failing over to a standby replica, its Mamba-2 prefill,
-its gemma3, MoE and jamba prefill and decode, and its training (the kernels' ``autograd.Function``s,
+across pods, failing over to a standby replica and under the ShmCheck
+sanitizer, its Mamba-2 prefill, its gemma3, MoE and jamba prefill and
+decode, and its training (the kernels' ``autograd.Function``s,
 ``Model.loss_fn``'s gradients, train steps, the training CLI) on the
 card, held against the port's plain PyTorch versions on the same
 inputs. Needs a CUDA card and nvcc; skips without one. Imports nothing
@@ -562,6 +563,79 @@ def test_standby_failover_on_card_matches_cpu(dev):
         assert top2[0] - top2[1] <= tol["atol"] + tol["rtol"] * abs(top2[0]), \
             f"row parts at step {k} without a near-tie: {b} vs {a}"
 
+
+
+def _sanitized_streams(cfg, model, prompts, max_new):
+    """Phase 42 at the smoke size: a threaded engine built inside a
+    ShmCheck session of the port; one client thread a prompt, polling at
+    200 µs through the wait policy of its stub's connection. Returns the
+    token lists, the engine and the tracer."""
+    import threading
+
+    from repro_torch.analysis import session
+    from repro_torch.core.channel import BusyWaitPolicy
+    from repro_torch.serving import DecodeService
+
+    pc = PoolConfig(num_pages=64, page_tokens=8, max_pages_per_seq=8)
+    outs, errors = [None] * len(prompts), []
+
+    def client(i):
+        try:
+            stub = eng.router.stub(eng.endpoint_name, DecodeService, pid=50 + i)
+            stub.connection.target.wait_policy = BusyWaitPolicy(fixed_sleep_us=200.0)
+            outs[i] = list(stub.generate_stream.stream(prompts[i], max_new, timeout=120.0))
+        except Exception as e:   # surfaced below
+            errors.append((i, e))
+
+    with session() as tr:
+        eng = ServeEngine(cfg, model, pc, max_active=4, serve_threaded=True,
+                          device=model.device)
+        assert eng.pool.heap._tracer is tr
+        free0 = eng.pool.heap.free_pages()
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120.0)
+                assert not t.is_alive()
+        finally:
+            eng.shutdown()
+    assert not errors, errors
+    assert eng.pool.heap.free_pages() == free0
+    assert eng.pool.stats()["sealed_pages"] == 0 and eng.scheduler.slots == []
+    return outs, eng, tr
+
+
+def test_sanitized_streams_on_card_match_cpu(dev):
+    """Phase 42 at the smoke size: four client threads stream from a
+    threaded engine on the card under the port's ShmCheck session; no
+    finding on either device, the tokens equal the CPU engine's (a row may
+    part only at a near-tie of the CPU's logits), K3 launches L x 4 and K1
+    L x the decode steps, oob 0, and every page, seal and slot comes
+    back."""
+    cfg = _card_config()
+    model = build_model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    prompts = [list(range(1, 4 + 3 * i)) for i in range(4)]
+    want, _, tr_cpu = _sanitized_streams(cfg, model, prompts, 6)
+    n0, f0 = paged_attention.launches, flash_prefill_cuda.launches
+    got, eng, tr = _sanitized_streams(cfg, copy.deepcopy(model).to(dev), prompts, 6)
+    assert tr_cpu.findings == [] and tr.findings == [], [str(f) for f in tr.findings]
+    assert tr.n_events > 0
+    assert paged_attention.launches - n0 == cfg.num_layers * eng.decode_steps
+    assert flash_prefill_cuda.launches - f0 == cfg.num_layers * 4
+    assert eng.oob_events == 0
+    tol = TOL[torch.bfloat16]
+    for prompt, a, b in zip(prompts, want, got):
+        assert len(b) == 6
+        k = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if k is None:
+            continue
+        toks = torch.tensor([prompt + a[:k]], dtype=torch.int32)
+        top2 = torch.topk(model.prefill(toks)[0][0].float(), 2).values.tolist()
+        assert top2[0] - top2[1] <= tol["atol"] + tol["rtol"] * abs(top2[0]), \
+            f"row parts at step {k} without a near-tie: {b} vs {a}"
 
 # -- K4: the SSD intra-chunk kernel ------------------------------------------
 def _ssd_inputs(B, S, H, P, N, dtype, seed=0, decay="strong"):

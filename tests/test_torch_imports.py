@@ -68,3 +68,11 @@ def test_every_on_path_kernel_has_a_cuda_source(kernel, source):
     # beside it: the plain version and the dispatching wrapper
     for part in ("ref.py", "kernel.py", "ops.py"):
         assert (PORT / "kernels" / kernel / part).is_file()
+
+
+def test_guard_covers_the_sanitizer_package():
+    """ShmCheck's port (``repro_torch/analysis/``) is among the files
+    guarded: host code that imports neither jax nor the reference."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {f"analysis/{m}.py" for m in ("__init__", "findings", "hb", "runtime",
+                                         "tracer")} <= names
