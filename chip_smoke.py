@@ -9,8 +9,9 @@ before the result line is printed:
 1. environment: the card's name and power limit; build the CUDA kernels
    from ``src/repro_torch/csrc`` (timed as set-up) and read ptxas's
    register and spill report, which must cover the two bf16
-   paged-attention, the three bf16 flash-prefill and the bf16 SSD
-   instantiations and show no spill in them;
+   paged-attention, the three bf16 flash-prefill, its six bf16 backward
+   (dq and dk/dv at each head_dim) and the bf16 SSD instantiations and
+   show no spill in them;
 2. the paged-attention and page-copy kernels against their plain PyTorch
    versions on the card, at the yi-9b slice's shapes, plus the sandbox
    cases in f32 and bf16, bf16 cases that reach the cluster split
@@ -148,38 +149,46 @@ before the result line is printed:
 31. the serving CLI (``repro_torch.launch.serve.main``) in-process at the
     reference's defaults and with ``--sleep-us 5``: on the card, 0 sandbox
     violations, K1 and K3 launches counted around each call;
-32. the kernels' gradients: ``FlashPrefillFn`` (K3's forward, the plain
-    gradient of ``grad.py``) against ``flash_prefill_vjp`` on the plain
-    forward at olmo-1b's training shape and gemma3's (D 256, window 1,024,
-    a softcap), fp32 (also against autograd of the plain version) and
-    bf16, with K3's forward, the plain vjp and SDPA's forward + backward
-    timed; ``SsdIntraChunkFn`` at mamba2's shape with chunk decays above
+32. the kernels' gradients: ``FlashPrefillFn`` (K3's forward and its
+    backward kernel, ``csrc/flash_prefill_bwd.cu``) against
+    ``flash_prefill_vjp`` on the plain forward at olmo-1b's training shape
+    and gemma3's (D 256, window 1,024, a softcap), fp32 (also against
+    autograd of the plain version) and bf16: finite, one backward launch a
+    gradient, a second gradient bitwise the first; the backward kernel
+    alone against ``flash_prefill_vjp`` given the kernel forward's own O
+    and lse at K3's kernel tolerance (bf16 atol 2e-3, rtol 1e-2); the
+    backward kernel timed beside its bound, the plain vjp, K3's forward and SDPA's
+    backward alone and forward + backward (each backend alone, causal
+    only); ``SsdIntraChunkFn`` at mamba2's shape with chunk decays above
     88, finite in fp32 and bf16, and the chunked scan's grads through K4
     against autograd through the token recurrence;
 33. olmo-1b at full width and depth, bf16 with fp32 AdamW state:
     ``make_train_step`` with remat, 20 steps on one 8 x 512 batch of the
     synthetic packed corpus (the loss falls by at least 0.5); every first
     gradient finite and non-zero; K3 twice a layer a step (forward and
-    recompute); step ms, tokens/s, peak memory, a profiled step; an fp32
-    copy at 2 layers: gradients through K3 against the plain version's
-    within 1e-3 of each gradient's max;
+    recompute) and its backward kernel once; step ms, tokens/s, peak
+    memory, a profiled step; an fp32 copy at 2 layers: gradients through
+    K3 and its backward against the plain version's (no kernel launched
+    under the plain patch) within 1e-3 of each gradient's max;
 34. mamba2-1.3b the same way, with K4;
 35. the training CLI (``repro_torch.launch.train.main``) in-process: 40
-    steps with a checkpoint every 20, then ``--resume`` from step 20
+    steps with a checkpoint every 20 (K3 twice a layer a step, its
+    backward once), then ``--resume`` from step 20
     equals the uninterrupted run bitwise (else the largest difference and
     the ops without a deterministic implementation are printed);
 36. sharded training on a world-size-1 NCCL group and a (1, 1, 1)
     pod/data/model mesh: olmo-1b (5 steps) and mamba2-1.3b (3 steps) as
     phases 33-34 build them, their parameters DTensors under
     ``launch/sharding.rules_for``, ZeRO-1 moments: losses bitwise equal to
-    phases 33-34's, K3/K4 twice a layer a step on their local shards, peak
+    phases 33-34's, K3/K4 twice a layer a step on their local shards (K3's
+    backward once), peak
     memory within 2%; the step ms beside the unsharded step's, a profiled
     step, and one sharded and one unsharded step under cProfile (DTensor's
     own host time, its dispatches and redistributes); olmo-1b's sharded
     parameters saved and restored onto the unsharded model bitwise;
 
 37. gradient compression: olmo-1b's full gradient tree from one 8 x 512
-    step with remat (K3 twice a layer), two rounds of ``compressed_psum``
+    step with remat (K3 twice a layer, its backward once), two rounds of ``compressed_psum``
     with error feedback over the pod axis of a (1, 1, 1) mesh on a
     world-size-1 NCCL group, int8 on the wire (``n_shards=1``) and int32
     (asserted on the tensors handed to ``all_reduce``): every leaf within
@@ -648,7 +657,8 @@ def profile_steps(step, dev, steps=4, watch=()):
     """``steps`` calls of ``step`` timed on the host clock, then the same
     under torch.profiler: device time by kernel against the host clock,
     and, for each name in ``watch``, the device time of the kernels whose
-    name holds it.
+    name holds it and no longer watched name (``flash_prefill_bwd`` takes
+    the backward's kernels from ``flash_prefill``).
     Only device events are summed: an operator's own entry also carries
     the time of the kernels it launched, which would count them twice."""
     from torch.autograd import DeviceType
@@ -670,12 +680,16 @@ def profile_steps(step, dev, steps=4, watch=()):
                if e.device_type != DeviceType.CPU and e.self_device_time_total > 0]
     busy_ms = sum(t for _, t, _ in kernels)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
+
+    def watched(name):
+        return max((w for w in watch if w in name), key=len, default=None)
     return {"steps": steps, "wall_ms_per_step": wall_ms,
             "profiled_wall_ms_per_step": prof_wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
             "launches_per_step": sum(c for _, _, c in kernels),
-            "watch_ms_per_step": {w: sum(t for k, t, _ in kernels if w in k) for w in watch},
+            "watch_ms_per_step": {w: sum(t for k, t, _ in kernels if watched(k) == w)
+                                  for w in watch},
             "top_kernels_ms_per_step": [(k[:80], t) for k, t, _ in top]}
 
 
@@ -3451,25 +3465,80 @@ def max_rel(got, want) -> float:
         want.float().abs().max().item(), 1e-30)
 
 
+def sdpa_grad_times(timer, qs, ks, vs, do_s, gqa):
+    """SDPA (causal) under each backend alone: its backward by itself (one
+    ``autograd.grad`` over a retained graph: the backward kernel the
+    forward chose) and its forward + backward. Returns the backend whose
+    backward is fastest, that ms, its forward + backward ms, and every
+    backend's pair or why it refused the inputs."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    every = {}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            every[name] = "not in this torch"
+            continue
+
+        def fwd(backend=backend):
+            with sdpa_kernel(backend):
+                return sdpa(qs, ks, vs, is_causal=True, enable_gqa=gqa)
+        try:
+            o = fwd()
+            torch.autograd.grad(o, (qs, ks, vs), do_s, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            every[name] = "refused: " + (str(e).strip().splitlines() or ["?"])[0][:160]
+            continue
+        every[name] = {
+            "bwd_ms": timer.ms(lambda: torch.autograd.grad(o, (qs, ks, vs), do_s,
+                                                           retain_graph=True), samples=5),
+            "fwd_bwd_ms": timer.ms(lambda: torch.autograd.grad(fwd(), (qs, ks, vs), do_s),
+                                   samples=5)}
+        del o
+    timed = {k: v for k, v in every.items() if isinstance(v, dict)}
+    if not timed:
+        fail(f"no SDPA backend took the backward yardstick's inputs: {every}")
+    best = min(timed, key=lambda k: timed[k]["bwd_ms"])
+    return best, timed[best]["bwd_ms"], timed[best]["fwd_bwd_ms"], every
+
+
 def k3_grad_case(gen, timer, case, dtype):
-    """``FlashPrefillFn`` (the kernel's forward) against ``flash_prefill_vjp``
-    applied to the plain forward, at one (B, S, Hq, Hkv, D, window,
-    softcap) case; fp32 also against autograd through the plain version.
-    Returns the case's errors and, in bf16, its times."""
+    """``FlashPrefillFn`` (K3's forward and the backward kernel) against
+    ``flash_prefill_vjp`` applied to the plain forward, at one (B, S, Hq,
+    Hkv, D, window, softcap) case: finite, one backward launch, and a
+    second gradient bitwise the first; fp32 also against autograd through
+    the plain version; then the backward kernel alone against
+    ``flash_prefill_vjp`` given the kernel forward's own O and lse, at
+    K3's kernel tolerance (``TOL_K3``). Returns the case's errors and
+    times: the backward
+    kernel alone beside its bound (bf16) and the plain vjp, K3's forward,
+    and SDPA's backward and forward + backward where SDPA computes the
+    function (no window, no softcap)."""
     from repro_torch.kernels.flash_prefill import (FlashPrefillFn, flash_prefill_ref,
                                                    flash_prefill_vjp)
-    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill.kernel import (flash_prefill_bwd_cuda,
+                                                          flash_prefill_cuda)
 
     B, S, Hq, Hkv, D, window, softcap = case
     q, k, v = (t.requires_grad_() for t in k3_inputs(gen, B, S, Hq, Hkv, D, dtype))
     dout = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
     fn = lambda: FlashPrefillFn.apply(q, k, v, window, softcap, flash_prefill_cuda)  # noqa: E731
+    n0 = flash_prefill_bwd_cuda.launches
     got = torch.autograd.grad(fn(), (q, k, v), dout)
+    again = torch.autograd.grad(fn(), (q, k, v), dout)
+    torch.cuda.synchronize()
+    name = f"B{B} S{S} {Hq}/{Hkv} D{D} w{window} cap{softcap:g} {str(dtype)[6:]}"
+    if flash_prefill_bwd_cuda.launches != n0 + 2:
+        fail(f"two gradients through FlashPrefillFn launched the backward kernel "
+             f"{flash_prefill_bwd_cuda.launches - n0} times, not twice ({name})")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"flash_prefill's backward kernel is not bitwise repeatable ({name})")
     with torch.no_grad():
         plain = flash_prefill_ref(q, k, v, window=window, softcap=softcap)
         want = flash_prefill_vjp(q, k, v, plain, dout, window=window, softcap=softcap)
-    name = f"B{B} S{S} {Hq}/{Hkv} D{D} w{window} cap{softcap:g} {str(dtype)[6:]}"
-    out = {"max_abs_err": 0.0}
+    out = {"max_abs_err": 0.0, "bitwise_repeatable": True}
     for part, g, w in zip("qkv", got, want):
         if g.dtype != dtype or not torch.isfinite(g.float()).all():
             fail(f"flash_prefill's d{part} is not finite {dtype} ({name})")
@@ -3478,6 +3547,33 @@ def k3_grad_case(gen, timer, case, dtype):
             fail(f"flash_prefill's d{part} through the kernel disagrees with the plain "
                  f"gradient ({name}): max |err| {(g.float() - w.float()).abs().max().item():.3e}")
         out["max_abs_err"] = max(out["max_abs_err"], (g.float() - w.float()).abs().max().item())
+    del got, again
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    with torch.no_grad():
+        o, lse = flash_prefill_cuda(qd, kd, vd, window=window, softcap=softcap, return_lse=True)
+    # the kernel alone against the plain gradient given the kernel forward's
+    # own O and lse (its formulation), at K3's kernel tolerance: both sides
+    # accumulate in fp32, so bf16 grads differ by about their rounding
+    with torch.no_grad():
+        alone = flash_prefill_bwd_cuda(qd, kd, vd, o, dout, lse, window=window, softcap=softcap)
+        same = flash_prefill_vjp(qd, kd, vd, o, dout, window=window, softcap=softcap, lse=lse)
+    tol = out["kernel_tol"] = TOL_K3[dtype]
+    out["kernel_vs_vjp_same_lse_max_abs_err"] = out["kernel_vs_vjp_same_lse_tol_used"] = 0.0
+    for part, g, w in zip("qkv", alone, same):
+        diff = (g.float() - w.float()).abs()
+        err = diff.max().item()
+        # the largest share of its allowance, atol + rtol·|want|, an element uses
+        used = (diff / (tol["atol"] + tol["rtol"] * w.float().abs())).max().item()
+        if not used <= 1:   # NaN too
+            fail(f"flash_prefill_bwd_cuda's d{part} disagrees with flash_prefill_vjp given "
+                 f"the same O and lse ({name}): max |err| {err:.3e}, {used:.2f} of the "
+                 f"allowance (atol {tol['atol']:g}, rtol {tol['rtol']:g})")
+        out["kernel_vs_vjp_same_lse_max_abs_err"] = max(
+            out["kernel_vs_vjp_same_lse_max_abs_err"], err)
+        out["kernel_vs_vjp_same_lse_tol_used"] = max(out["kernel_vs_vjp_same_lse_tol_used"], used)
+    del alone, same, diff
+    out["bwd_ms"] = timer.ms(lambda: flash_prefill_bwd_cuda(qd, kd, vd, o, dout, lse,
+                                                           window=window, softcap=softcap))
     if dtype == torch.float32:   # the explicit gradient against autograd's
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         auto = torch.autograd.grad(flash_prefill_ref(*leaves, window=window, softcap=softcap),
@@ -3487,29 +3583,37 @@ def k3_grad_case(gen, timer, case, dtype):
             fail(f"flash_prefill_vjp disagrees with autograd of the plain version ({name}): "
                  f"{out['vjp_vs_autograd_max_rel']:.3e} of the max")
     else:
-        from torch.nn.functional import scaled_dot_product_attention as sdpa
-        qd, kd, vd = (t.detach() for t in (q, k, v))
-        qs, ks, vs = (t.transpose(1, 2).requires_grad_() for t in (qd, kd, vd))
-        do_s = dout.transpose(1, 2)
-
-        def sdpa_fwd_bwd():
-            o = sdpa(qs, ks, vs, is_causal=True, enable_gqa=Hq != Hkv)
-            return torch.autograd.grad(o, (qs, ks, vs), do_s)
+        # 10·D operations a visible pair and query head; q, k, v, O, dO and lse
+        # read, dq, dk and dv written once
+        nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * B * Hq * S
+        flops = 10 * D * Hq * B * k3_pairs(S, window)
+        b_ms, b_by = bound_ms(nbytes, flops)
         out.update({
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "flops": flops,
+            "bwd_TFLOP_per_s": flops / out["bwd_ms"] / 1e9,
             "fwd_ms": timer.ms(lambda: flash_prefill_cuda(qd, kd, vd, window=window,
                                                           softcap=softcap)),
             "vjp_ms": timer.ms(lambda: flash_prefill_vjp(qd, kd, vd, plain, dout, window=window,
                                                          softcap=softcap), samples=5),
-            "sdpa_fwd_bwd_ms": (timer.ms(sdpa_fwd_bwd, samples=5)
-                                if not window and not softcap else None)})
+            "sdpa_bwd_ms": None, "sdpa_fwd_bwd_ms": None, "sdpa_backend": None})
+        if not window and not softcap:
+            qs, ks, vs = (t.transpose(1, 2).requires_grad_() for t in (qd, kd, vd))
+            best, bwd, fwd_bwd, every = sdpa_grad_times(timer, qs, ks, vs,
+                                                        dout.transpose(1, 2), Hq != Hkv)
+            out.update({"sdpa_bwd_ms": bwd, "sdpa_fwd_bwd_ms": fwd_bwd,
+                        "sdpa_backend": f"SDPA {best}", "sdpa_by_backend": every})
     return name, out
 
 
 def phase_kernel_grads(gen, card):
-    """Phase 32: the kernels' ``autograd.Function``s on the card. K3 at
-    olmo-1b's training shape (B 8, S 512, 16/16, D 128) and gemma3's (D
-    256, window 1,024, softcap 50), fp32 and bf16, against the plain
-    gradient (``grad.py``) applied to the plain forward. K4 at mamba2's
+    """Phase 32: the kernels' ``autograd.Function``s on the card. K3 (its
+    forward and backward kernels) at olmo-1b's training shape (B 8, S 512,
+    16/16, D 128) and gemma3's (D 256, window 1,024, softcap 50), fp32 and
+    bf16, against the plain gradient (``grad.py``) applied to the plain
+    forward, finite and bitwise repeatable; the backward kernel alone
+    against the plain gradient given the kernel forward's O and lse at
+    ``TOL_K3``; the backward kernel timed beside its bound, the plain
+    gradient and SDPA. K4 at mamba2's
     shape with chunk decays above 88: the Function's grads against
     ``ssd_intra_chunk_vjp`` on the same inputs, all finite, and the
     chunked scan's grads through the kernel against autograd through the
@@ -3568,14 +3672,23 @@ def phase_kernel_grads(gen, card):
     max_decay = max(d["max_chunk_decay"] for d in k4.values())
     k4["scan_vs_recurrence_max_rel"] = scan_rel
     torch.cuda.empty_cache()
-    log(f"phase 32 kernel gradients on {card}: flash_prefill through FlashPrefillFn vs "
-        f"flash_prefill_vjp on the plain forward (f32 at atol {TOL_F32['atol']:g}, bf16 at "
-        f"atol {TOL_BF16['atol']:g}): "
-        + "; ".join(f"{n} max |err| {d['max_abs_err']:.2e}"
+    log(f"phase 32 kernel gradients on {card}: flash_prefill through FlashPrefillFn (K3's "
+        f"forward and backward kernels) vs flash_prefill_vjp on the plain forward (f32 at "
+        f"atol {TOL_F32['atol']:g}, bf16 at atol {TOL_BF16['atol']:g}), finite, one backward "
+        f"launch a gradient, two gradients bitwise equal: "
+        + "; ".join(f"{n} max |err| {d['max_abs_err']:.2e}, the kernel alone vs the vjp given "
+                    f"its O and lse {d['kernel_vs_vjp_same_lse_max_abs_err']:.2e}, "
+                    f"{d['kernel_vs_vjp_same_lse_tol_used']:.2f} of its allowance (atol "
+                    f"{d['kernel_tol']['atol']:g} + rtol {d['kernel_tol']['rtol']:g} of |want|), "
+                    f"backward kernel {d['bwd_ms']:.4f} ms"
                     + (f", vjp vs autograd {d['vjp_vs_autograd_max_rel']:.1e} of the max"
                        if "vjp_vs_autograd_max_rel" in d else
-                       f", kernel fwd {d['fwd_ms']:.3f} ms, plain vjp {d['vjp_ms']:.3f} ms"
-                       + (f", SDPA fwd+bwd {d['sdpa_fwd_bwd_ms']:.3f} ms"
+                       f" (bound {d['bound_ms']:.4f} ms by {d['bound_by']}, "
+                       f"{d['bwd_TFLOP_per_s']:.1f} TFLOP/s), K3 fwd {d['fwd_ms']:.4f} ms, "
+                       f"plain vjp {d['vjp_ms']:.3f} ms"
+                       + (f", {d['sdpa_backend']} bwd {d['sdpa_bwd_ms']:.4f} ms, fwd+bwd "
+                          f"{d['sdpa_fwd_bwd_ms']:.4f} ms against K3 fwd+bwd "
+                          f"{d['fwd_ms'] + d['bwd_ms']:.4f} ms"
                           if d["sdpa_fwd_bwd_ms"] is not None else ""))
                     for n, d in k3.items())
         + f"; ssd_intra_chunk at B{sh['B']} S{sh['S']} H{sh['H']} P{sh['P']} N{sh['N']} "
@@ -3584,7 +3697,13 @@ def phase_kernel_grads(gen, card):
         f"and bf16, plain vjp "
         f"{k4['float32']['vjp_ms']:.3f} / {k4['bfloat16']['vjp_ms']:.3f} ms; chunked scan "
         f"through K4 vs the recurrence at B1 (f32): {scan_rel:.1e} of the max")
-    return {"flash_prefill": k3, "ssd_intra_chunk": k4,
+    # the kernels line's backward entry: olmo-1b's training shape in bf16
+    olmo = k3["B8 S512 16/16 D128 w0 cap0 bfloat16"]
+    bwd = {"ms": olmo["bwd_ms"], "plain_ms": olmo["vjp_ms"], "bound_ms": olmo["bound_ms"],
+           "bound_by": olmo["bound_by"], "library_ms": olmo["sdpa_bwd_ms"],
+           "library_backend": f"{olmo['sdpa_backend']} backward alone (autograd.grad over "
+                              f"its retained graph)"}
+    return {"flash_prefill": k3, "ssd_intra_chunk": k4, "flash_prefill_bwd": bwd,
             "max_abs_err": max(d["max_abs_err"] for d in k3.values())}
 
 
@@ -3600,11 +3719,17 @@ def train_batch(cfg, B, S, seed=0):
 def plain_vs_kernel_grads(cfg, batch, plain, layers=2):
     """An fp32 copy at full width and ``layers`` layers: the gradients of
     one loss with the kernels against those with ``plain`` (a patch that
-    routes the kernel's calls through its plain version). Returns
-    the worst gradient's max |Δ| over its max |g|."""
+    routes the kernel's calls through its plain version under plain
+    autograd, forward and backward: no kernel of the port launches under
+    it, asserted). Returns the worst gradient's max |Δ| over its max |g|."""
     from dataclasses import replace
 
+    from repro_torch.kernels.flash_prefill.kernel import (flash_prefill_bwd_cuda,
+                                                          flash_prefill_cuda)
+    from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
     from repro_torch.models import build_model
+
+    counters = (flash_prefill_cuda, flash_prefill_bwd_cuda, ssd_intra_chunk_cuda)
 
     model = build_model(replace(cfg, num_layers=layers)).init(
         torch.Generator("cuda").manual_seed(0))
@@ -3614,9 +3739,13 @@ def plain_vs_kernel_grads(cfg, batch, plain, layers=2):
     leaves = list(model.parameters())
     grads = []
     for ctx in (contextlib.nullcontext(), plain):
+        n0 = [c.launches for c in counters]
         with ctx:   # the backward too: remat recomputes the forward there
             loss, _ = model.loss_fn(batch)
             grads.append(torch.autograd.grad(loss, leaves))
+        if ctx is plain and [c.launches for c in counters] != n0:
+            fail(f"{cfg.name}: the plain path launched a kernel: "
+                 f"{[c.launches - n for c, n in zip(counters, n0)]}")
     worst = max(max_rel(g, p) for g, p in zip(*grads))
     del model, grads
     torch.cuda.empty_cache()
@@ -3631,6 +3760,7 @@ def phase_train_model(cfg, kernel, plain, card, n, steps=20, B=8, S=512):
     every parameter is finite and not all zero; ``kernel`` launches twice a
     layer a step (the forward and the recompute); then step time, tokens/s,
     peak memory and a profiled step; then ``plain_vs_kernel_grads``."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_bwd_cuda as bwd
     from repro_torch.models import build_model
     from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 
@@ -3640,16 +3770,17 @@ def phase_train_model(cfg, kernel, plain, card, n, steps=20, B=8, S=512):
     n_params = sum(p.numel() for p in model.parameters())
     init_s = time.perf_counter() - t0
     L = layer_counts(cfg)[0 if kernel.__name__ == "flash_prefill_cuda" else 1]
+    L_bwd = layer_counts(cfg)[0]   # K3's backward: once an attention layer a step
     batch = train_batch(cfg, B, S)
 
     model.trainable()
     names, leaves = zip(*model.named_parameters())
     torch.cuda.reset_peak_memory_stats()
-    kernel.launches = 0
+    kernel.launches = bwd.launches = 0
     loss, _ = model.loss_fn(batch)
     grads = torch.autograd.grad(loss, leaves)
     torch.cuda.synchronize()
-    first_launches = kernel.launches
+    first_launches, first_bwd = kernel.launches, bwd.launches
     bad = [nm for nm, g in zip(names, grads)
            if not torch.isfinite(g).all() or not torch.count_nonzero(g)]
     if bad:
@@ -3657,31 +3788,37 @@ def phase_train_model(cfg, kernel, plain, card, n, steps=20, B=8, S=512):
     if first_launches != 2 * L:
         fail(f"{cfg.name}: {kernel.__name__} launched {first_launches} times for one loss "
              f"and its gradient, expected 2 x {L} (forward and recompute)")
+    if first_bwd != L_bwd:
+        fail(f"{cfg.name}: flash_prefill_bwd ran {first_bwd} times for one gradient, "
+             f"expected {L_bwd}")
     grad_peak_gb = peak_gb()
     del grads, loss
 
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=steps)
     step = make_train_step(model, opt_cfg)
     state = init_opt_state(model.params())
-    kernel.launches = 0
+    kernel.launches = bwd.launches = 0
     losses, step_ms = [], []
     for _ in range(steps):
         t1 = time.perf_counter()
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))   # syncs
         step_ms.append(1e3 * (time.perf_counter() - t1))
-    launches = kernel.launches
+    launches, bwd_launches = kernel.launches, bwd.launches
     train_peak_gb = peak_gb()
     if launches != 2 * L * steps:
         fail(f"{cfg.name}: {kernel.__name__} launched {launches} times in {steps} steps, "
              f"expected 2 x {L} a step")
+    if bwd_launches != L_bwd * steps:
+        fail(f"{cfg.name}: flash_prefill_bwd ran {bwd_launches} times in {steps} steps, "
+             f"expected {L_bwd} a step")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0] - 0.5:
         fail(f"{cfg.name}: the loss did not fall by 0.5 in {steps} steps: {losses}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
         fail(f"{cfg.name}: a parameter is not finite after training")
     med = float(np.median(step_ms[2:]))
     prof = profile_steps(lambda: step(state, batch), model.device, steps=2,
-                         watch=(kernel.__name__.replace("_cuda", ""),))
+                         watch=(kernel.__name__.replace("_cuda", ""), "flash_prefill_bwd"))
     del model, state, step
     torch.cuda.empty_cache()
     worst = plain_vs_kernel_grads(cfg, batch, plain)
@@ -3691,19 +3828,23 @@ def phase_train_model(cfg, kernel, plain, card, n, steps=20, B=8, S=512):
     info = {"params": n_params, "init_s": init_s, "B": B, "S": S, "steps": steps,
             "losses": losses, "step_ms": step_ms, "step_ms_median": med,
             "tokens_per_s": B * S / med * 1e3, "launches": launches,
-            "launches_per_step": launches / steps, "first_grad_peak_gb": grad_peak_gb,
+            "launches_per_step": launches / steps, "bwd_launches": bwd_launches,
+            "bwd_launches_per_step": bwd_launches / steps, "first_grad_peak_gb": grad_peak_gb,
             "train_peak_gb": train_peak_gb, "profile": prof,
             "fp32_kernel_vs_plain_grads_max_rel": worst}
     log(f"phase {n} {cfg.name} training on {card}: {n_params / 1e9:.3f} B params (bf16, fp32 "
         f"AdamW state), {steps} steps on one {B} x {S} batch, remat on: loss {losses[0]:.4f} "
         f"-> {losses[-1]:.4f} (min {min(losses):.4f}); first gradients finite and non-zero "
         f"for all {len(names)} parameters; {kernel.__name__} {first_launches} launches for "
-        f"one loss and gradient and {launches / steps:.0f} a step ({L} layers x 2); step "
+        f"one loss and gradient and {launches / steps:.0f} a step ({L} layers x 2), "
+        f"flash_prefill_bwd {first_bwd} and {bwd_launches} in {steps} steps ({L_bwd} a "
+        f"step); step "
         f"{med:.1f} ms (median of steps 3-{steps}, host clock, synced), "
         f"{info['tokens_per_s']:.0f} tokens/s; peak {train_peak_gb:.2f} GB training "
         f"({grad_peak_gb:.2f} GB for the first gradient); a step under the profiler: "
         f"{profile_line(prof)}, {kernel.__name__.replace('_cuda', '')} "
-        f"{prof['watch_ms_per_step'][kernel.__name__.replace('_cuda', '')]:.2f} ms; fp32 at 2 "
+        f"{prof['watch_ms_per_step'][kernel.__name__.replace('_cuda', '')]:.2f} ms, "
+        f"flash_prefill_bwd {prof['watch_ms_per_step']['flash_prefill_bwd']:.2f} ms; fp32 at 2 "
         f"layers: gradients with the kernel vs the plain version {worst:.2e} of the max")
     return info
 
@@ -3719,7 +3860,7 @@ def phase_train_cli(card, steps=40, every=20):
     import shutil
     import warnings
 
-    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_bwd_cuda, flash_prefill_cuda
     from repro_torch.launch import train
     from repro_torch.training.optimizer import tree_leaves
 
@@ -3730,13 +3871,14 @@ def phase_train_cli(card, steps=40, every=20):
     try:
         for name, extra in (("whole", []), ("resumed", ["--resume"])):
             out = io.StringIO()
-            flash_prefill_cuda.launches = 0
+            flash_prefill_cuda.launches = flash_prefill_bwd_cuda.launches = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
                 res = train.main(argv + extra)
             sync(res["model"].device)
             runs[name] = dict(res, wall_s=time.perf_counter() - t0,
                               launches=flash_prefill_cuda.launches,
+                              bwd_launches=flash_prefill_bwd_cuda.launches,
                               printed=out.getvalue().splitlines())
             if name == "whole":
                 shutil.rmtree(ckpt / f"step_{steps:09d}")
@@ -3746,9 +3888,10 @@ def phase_train_cli(card, steps=40, every=20):
             fail(f"the training CLI ran on {resumed['model'].device}")
         for name, r in runs.items():
             want = 2 * L * (steps - r["start"])
-            if r["launches"] != want:
-                fail(f"the training CLI ({name}): flash_prefill {r['launches']} launches, "
-                     f"expected {want}")
+            if r["launches"] != want or r["bwd_launches"] != want // 2:
+                fail(f"the training CLI ({name}): flash_prefill {r['launches']} and "
+                     f"flash_prefill_bwd {r['bwd_launches']} launches, expected {want} and "
+                     f"{want // 2}")
         if resumed["start"] != every or f"resumed from step {every}" not in resumed["printed"]:
             fail(f"the training CLI did not resume from step {every}: {resumed['printed'][:3]}")
         diffs = {nm: (a.float() - b.float()).abs().max().item()
@@ -3779,16 +3922,19 @@ def phase_train_cli(card, steps=40, every=20):
             fail("the training CLI's resumed run does not equal the uninterrupted run")
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
-    info = {name: {"start": r["start"], "launches": r["launches"], "wall_s": r["wall_s"],
+    info = {name: {"start": r["start"], "launches": r["launches"],
+                   "bwd_launches": r["bwd_launches"], "wall_s": r["wall_s"],
                    "losses": r["losses"], "printed": r["printed"]} for name, r in runs.items()}
     info["bitwise"] = True
     info["flash_prefill"] = whole["launches"] + resumed["launches"]
+    info["flash_prefill_bwd"] = whole["bwd_launches"] + resumed["bwd_launches"]
     log(f"phase 35 the training CLI on {card} (python -m repro_torch.launch.train, in-process, "
         f"{whole['model'].cfg.name}, {steps} steps, a checkpoint every {every}): "
-        f"uninterrupted {whole['wall_s']:.1f} s, flash_prefill {whole['launches']} launches, "
-        f"loss {whole['losses'][0]:.4f} -> {whole['losses'][-1]:.4f}; resumed from step "
-        f"{every} after removing step {steps}'s checkpoint: {resumed['wall_s']:.1f} s, "
-        f"{resumed['launches']} launches, parameters and optimizer state bitwise equal to the "
+        f"uninterrupted {whole['wall_s']:.1f} s, flash_prefill {whole['launches']} and "
+        f"flash_prefill_bwd {whole['bwd_launches']} launches, loss {whole['losses'][0]:.4f} -> "
+        f"{whole['losses'][-1]:.4f}; resumed from step {every} after removing step {steps}'s "
+        f"checkpoint: {resumed['wall_s']:.1f} s, {resumed['launches']} and "
+        f"{resumed['bwd_launches']} launches, parameters and optimizer state bitwise equal to the "
         f"uninterrupted run's; printed {[line for line in whole['printed'] if 'step' not in line]}")
     del runs, whole, resumed
     torch.cuda.empty_cache()
@@ -3918,6 +4064,7 @@ def phase_sharded_train(cfg, kernel, unsharded, card, steps, B=8, S=512, elastic
 
     from torch.distributed.device_mesh import init_device_mesh
 
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_bwd_cuda as bwd
     from repro_torch.launch.sharding import (distribute_model, rules_for, sharding_tree,
                                              zero_sharding_tree)
     from repro_torch.models import build_model
@@ -3938,10 +4085,11 @@ def phase_sharded_train(cfg, kernel, unsharded, card, steps, B=8, S=512, elastic
     step = make_train_step(model, opt_cfg, rules=rules, mesh=mesh)
     batch = train_batch(cfg, B, S)
     L = layer_counts(cfg)[0 if kernel.__name__ == "flash_prefill_cuda" else 1]
+    L_bwd = layer_counts(cfg)[0]
 
     torch.cuda.synchronize()
     peak_gb()
-    kernel.launches = 0
+    kernel.launches = bwd.launches = 0
     shard.redistributes = 0
     losses, step_ms = [], []
     for _ in range(steps):
@@ -3949,22 +4097,23 @@ def phase_sharded_train(cfg, kernel, unsharded, card, steps, B=8, S=512, elastic
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))   # syncs
         step_ms.append(1e3 * (time.perf_counter() - t1))
-    launches, redistributes = kernel.launches, shard.redistributes
+    launches, bwd_launches, redistributes = kernel.launches, bwd.launches, shard.redistributes
     peak = peak_gb()
     want = unsharded["losses"][:steps]
     if losses != want:
         fail(f"{cfg.name} sharded on (1, 1, 1): losses {losses} differ from the unsharded "
              f"run's {want}")
-    if launches != 2 * L * steps:
-        fail(f"{cfg.name} sharded: {kernel.__name__} launched {launches} times in {steps} "
-             f"steps, expected 2 x {L} a step")
+    if launches != 2 * L * steps or bwd_launches != L_bwd * steps:
+        fail(f"{cfg.name} sharded: {kernel.__name__} launched {launches} times and "
+             f"flash_prefill_bwd {bwd_launches} in {steps} steps, expected 2 x {L} and "
+             f"{L_bwd} a step")
     if abs(peak - unsharded["train_peak_gb"]) > 0.02 * unsharded["train_peak_gb"]:
         fail(f"{cfg.name} sharded: peak {peak:.2f} GB against {unsharded['train_peak_gb']:.2f} "
              f"GB unsharded, beyond 2%")
     placements = sorted({str(tuple(x.placements)) for x in tree_leaves(state["m"])})
     med = float(np.median(step_ms[2:]))
     prof = profile_steps(lambda: step(state, batch), model.device, steps=2,
-                         watch=(kernel.__name__.replace("_cuda", ""),))
+                         watch=(kernel.__name__.replace("_cuda", ""), "flash_prefill_bwd"))
     host_sharded = host_profile(lambda: step(state, batch))
     host_sharded.update(operator_calls(lambda: step(state, batch)))
 
@@ -4001,6 +4150,7 @@ def phase_sharded_train(cfg, kernel, unsharded, card, steps, B=8, S=512, elastic
     info = {"steps": steps, "losses": losses, "bitwise": True, "step_ms": step_ms,
             "step_ms_median": med, "unsharded_step_ms_median": unsharded["step_ms_median"],
             "ratio": ratio, "launches": launches, "launches_per_step": launches / steps,
+            "bwd_launches": bwd_launches, "bwd_launches_per_step": bwd_launches / steps,
             "unsharded_launches_per_step": unsharded["launches_per_step"],
             "redistributes_per_step": redistributes / steps, "peak_gb": peak,
             "unsharded_peak_gb": unsharded["train_peak_gb"], "moment_placements": placements,
@@ -4029,7 +4179,8 @@ def phase_sharded(cfgs, kernels, train, card):
         per_op = 1e3 * extra / h["dtensor_ops"] if h["dtensor_ops"] else float("nan")
         return (f"{name} {r['steps']} steps, losses {[round(x, 4) for x in r['losses']]} bitwise "
                 f"the unsharded run's, {r['launches_per_step']:.0f} "
-                f"{'flash_prefill' if name == 'olmo-1b' else 'ssd_intra_chunk'} launches a "
+                f"{'flash_prefill' if name == 'olmo-1b' else 'ssd_intra_chunk'} and "
+                f"{r['bwd_launches_per_step']:.0f} flash_prefill_bwd launches a "
                 f"step (unsharded {r['unsharded_launches_per_step']:.0f}), "
                 f"{r['redistributes_per_step']:.0f} redistributes by the rules a step; step "
                 f"{r['step_ms_median']:.1f} ms sharded vs {r['unsharded_step_ms_median']:.1f} ms "
@@ -4099,7 +4250,7 @@ def phase_grad_comp(cfg, card, n=37, B=8, S=512):
     equal between the two wires); a round's time beside its byte bound."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_cuda
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_bwd_cuda, flash_prefill_cuda
     from repro_torch.models import build_model
     from repro_torch.training.grad_comp import (compressed_psum, estimate_bytes,
                                                 init_error_state)
@@ -4108,22 +4259,23 @@ def phase_grad_comp(cfg, card, n=37, B=8, S=512):
     model.trainable()
     names, leaves = zip(*model.named_parameters())
     batch = train_batch(cfg, B, S)
-    flash_prefill_cuda.launches = 0
+    flash_prefill_cuda.launches = flash_prefill_bwd_cuda.launches = 0
     loss, _ = model.loss_fn(batch)
     grads = dict(zip(names, torch.autograd.grad(loss, leaves)))
     torch.cuda.synchronize()
-    launches = flash_prefill_cuda.launches
+    launches, bwd_launches = flash_prefill_cuda.launches, flash_prefill_bwd_cuda.launches
     L = layer_counts(cfg)[0]
-    if launches != 2 * L:
-        fail(f"phase {n}: the gradient step launched flash_prefill {launches} times, "
-             f"expected 2 x {L}")
+    if launches != 2 * L or bwd_launches != L:
+        fail(f"phase {n}: the gradient step launched flash_prefill {launches} and "
+             f"flash_prefill_bwd {bwd_launches} times, expected 2 x {L} and {L}")
     del model, loss, leaves
     torch.cuda.empty_cache()
     N = sum(g.numel() for g in grads.values())
     g_bytes = sum(g.numel() * g.element_size() for g in grads.values())
     eps = torch.finfo(next(iter(grads.values())).dtype).eps
     peak_gb()
-    out = {"launches": launches, "elements": N, "leaves": len(grads),
+    out = {"launches": launches, "bwd_launches": bwd_launches, "elements": N,
+           "leaves": len(grads),
            "estimate_bytes": estimate_bytes(grads), "rounds": {}}
     with nccl_world1("phase37"):
         import torch.distributed as dist
@@ -4199,7 +4351,7 @@ def phase_grad_comp(cfg, card, n=37, B=8, S=512):
     torch.cuda.empty_cache()
     r8, r32 = out["rounds"]["int8"], out["rounds"]["int32"]
     log(f"phase {n} compressed_psum on {card}: {cfg.name}'s gradient tree from one {B} x {S} "
-        f"step with remat ({launches} flash_prefill launches, {out['leaves']} leaves, {N / 1e9:.3f} B elements), 2 rounds with error feedback over the pod axis of a "
+        f"step with remat ({launches} flash_prefill and {bwd_launches} flash_prefill_bwd launches, {out['leaves']} leaves, {N / 1e9:.3f} B elements), 2 rounds with error feedback over the pod axis of a "
         f"(1, 1, 1) mesh (world size 1, NCCL): all_reduce handed float32 maxima then "
         f"{r8[0]['wire'][-1]} codes with n_shards=1 and {r32[0]['wire'][-1]} without; every "
         f"leaf's |g^ - (g + e)| within half a step plus one bf16 ulp (worst "
@@ -4404,7 +4556,8 @@ def main() -> int:
         f"{torch.version.cuda}), kernels built in {t_build:.1f} s; ptxas (registers, "
         f"spill bytes): {ptxas}")
     bf16_kernels = ([f"paged_attention_bf16_kernel<{D}>" for D in (64, 128)]
-                    + [f"flash_prefill_bf16_kernel<{D}>" for D in (64, 128, 256)]
+                    + [f"flash_prefill_{k}bf16_kernel<{D}>" for D in (64, 128, 256)
+                       for k in ("", "bwd_dq_", "bwd_dkdv_")]
                     + ["ssd_intra_chunk_bf16_kernel"])
     if missing := [name for name in bf16_kernels if name not in ptxas]:
         fail(f"no ptxas report for {missing}: the build left none to check for spills")
@@ -4535,6 +4688,10 @@ def main() -> int:
     from repro_torch.kernels.ssd.kernel import ssd_intra_chunk_cuda
 
     grads = phase_kernel_grads(gen, card)
+    # the kernel against its plain version on the same inputs (O and lse included)
+    errs["flash_prefill_bwd"] = max(d["kernel_vs_vjp_same_lse_max_abs_err"]
+                                    for d in grads["flash_prefill"].values())
+    times["flash_prefill_bwd"] = grads["flash_prefill_bwd"]
     train = {
         "olmo-1b": phase_train_model(get_config("olmo_1b"), flash_prefill_cuda,
                                      mock.patch.object(attention, "flash_prefill",
@@ -4564,6 +4721,9 @@ def main() -> int:
         "ssd_intra_chunk": ("src/repro_torch/csrc/ssd.cu", "src/repro/kernels/ssd/kernel.py:77"),
         "flash_prefill": ("src/repro_torch/csrc/flash_prefill.cu",
                           "src/repro/kernels/flash_prefill/kernel.py:84"),
+        # no TPU kernel: the reference differentiates _attend with jax.grad
+        "flash_prefill_bwd": ("src/repro_torch/csrc/flash_prefill_bwd.cu",
+                              "none: jax.grad of src/repro/models/attention.py:109 (_attend)"),
     }
     # launches on each path, each read around that path alone (the RPC
     # plane's summed over its parts); a kernel's launches are their sum
@@ -4594,17 +4754,25 @@ def main() -> int:
         wcfg.name: {"flash_prefill": whisper["serve"]["launches"]},
         "serve_cli": {name: sum(r[name] for r in cli.values())
                       for name in ("paged_attention", "flash_prefill")},
-        "olmo-1b training": {"flash_prefill": train["olmo-1b"]["launches"]},
+        "olmo-1b training": {"flash_prefill": train["olmo-1b"]["launches"],
+                             "flash_prefill_bwd": train["olmo-1b"]["bwd_launches"]},
         "mamba2-1.3b training": {"ssd_intra_chunk": train["mamba2-1.3b"]["launches"]},
-        "train_cli": {"flash_prefill": train_cli["flash_prefill"]},
-        "olmo-1b sharded training": {"flash_prefill": sharded["olmo-1b"]["launches"]},
+        "train_cli": {"flash_prefill": train_cli["flash_prefill"],
+                      "flash_prefill_bwd": train_cli["flash_prefill_bwd"]},
+        "olmo-1b sharded training": {"flash_prefill": sharded["olmo-1b"]["launches"],
+                                     "flash_prefill_bwd": sharded["olmo-1b"]["bwd_launches"]},
         "mamba2-1.3b sharded training": {"ssd_intra_chunk": sharded["mamba2-1.3b"]["launches"]},
-        "grad_comp_step": {"flash_prefill": grad_comp["launches"]},
+        "grad_comp_step": {"flash_prefill": grad_comp["launches"],
+                           "flash_prefill_bwd": grad_comp["bwd_launches"]},
         "pipeline": {"flash_prefill": pipeline["launches"]},
     }
+    # "launches" counts wrapper calls; the backward's call launches two
+    # __global__ kernels (dq with Δ, then dk/dv), every other wrapper's one
+    per_call = {"flash_prefill_bwd": 2}
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": tpu,
         "launches": sum(path.get(name, 0) for path in by_path.values()),
+        "device_launches_per_call": per_call.get(name, 1),
         "launches_by_path": {p: path[name] for p, path in by_path.items() if path.get(name)},
         "max_abs_err": errs[name],
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],

@@ -21,7 +21,7 @@ if TYPE_CHECKING:  # typing only
     from ..models.config import ModelConfig
 
 __all__ = ["ReproConfig", "global_config", "ARCH_IDS", "ALIASES",
-           "get_config", "get_smoke_config"]
+           "get_config", "get_smoke_config", "all_configs"]
 
 ARCH_IDS: List[str] = ["yi_9b", "mamba2_1p3b", "gemma3_12b", "olmo_1b",
                         "yi_6b", "qwen2_vl_7b", "granite_moe_1b_a400m",
@@ -50,3 +50,7 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

@@ -17,6 +17,12 @@
 // is 137.5 GFLOP → 0.139 ms against 100.7 MB → 0.030 ms; a 1024-token
 // window cuts the pairs to 0.44 of that.
 //
+// Given a non-null lse (the training forward, ops.FlashPrefillFn), both
+// kernels also write each row's log-sum-exp of its capped, masked, scaled
+// scores in natural-log units, fp32 (B, Hq, S): the saved statistic of
+// the backward kernel (flash_prefill_bwd.cu). The serving prefill passes
+// null and writes nothing more.
+//
 // bf16: tensor cores (flash_prefill_bf16_kernel). One block per (query
 // tile, query head, batch), the tiles with the most keys launched first;
 // a warpgroup (4 warps) owns 64 query rows, a warp 16 of them. At D 256 a
@@ -118,7 +124,8 @@ __device__ __forceinline__ float row_sum16(float x) {
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_prefill_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int S, int Hq, int Hkv, int window, float softcap, float scale) {
+    float* __restrict__ out, float* __restrict__ lse, int S, int Hq, int Hkv, int window,
+    float softcap, float scale) {
   constexpr int kLD = D + kPad;   // row stride of the q and K tiles
   constexpr int kNJ = D / 64;     // float4 column groups per thread in P·V
   extern __shared__ float4 smem4[];
@@ -251,6 +258,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_f32_kernel(
     const int qp = q0 + ty + 16 * i;
     if (qp >= S) continue;   // padded rows are never written
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    if (lse != nullptr && tx == 0) lse[((size_t)b * Hq + h) * S + qp] = m[i] + logf(l[i]);
     float* o = out + (((size_t)b * S + qp) * Hq + h) * D + 4 * tx;
 #pragma unroll
     for (int jj = 0; jj < kNJ; ++jj)
@@ -261,8 +269,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_prefill_f32_kernel(
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Hq,
-           int Hkv, int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+           int Hq, int Hkv, int window, float softcap, cudaStream_t stream) {
   const int smem = smem_floats(D) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_f32_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -270,7 +278,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   flash_prefill_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Hq, Hkv, window, softcap,
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, Hq, Hkv, window, softcap,
       1.f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
@@ -285,6 +293,7 @@ namespace bf16 {
 using T = __nv_bfloat16;
 constexpr int kBK = 64;       // keys per tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kLazy = 8.f;  // log2 units the running max may trail a tile's max
 
 // warpgroups per block (64 query rows each), the blocks an SM is meant to
@@ -493,8 +502,9 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const T* src, size_t str
 template <int D>
 __global__ void __launch_bounds__(128 * Shape<D>::kWG, Shape<D>::kMinBlocks)
     flash_prefill_bf16_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v, T* __restrict__ out, int S, int Hq,
-                              int Hkv, int window, float qk_scale, float cap, int pack_log2) {
+                              const T* __restrict__ v, T* __restrict__ out,
+                              float* __restrict__ lse, int S, int Hq, int Hkv, int window,
+                              float qk_scale, float cap, int pack_log2) {
   constexpr int kWG = Shape<D>::kWG;
   constexpr int kThreads = 128 * kWG;
   constexpr int kNS = kBK / 8;                   // 8-key tiles of the scores
@@ -676,6 +686,9 @@ __global__ void __launch_bounds__(128 * Shape<D>::kWG, Shape<D>::kMinBlocks)
     const int qp = r0 + 8 * i;
     if (qp >= S) continue;   // padded rows are never written
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    // the row's log-sum-exp in natural units: m and the scores are in log2 units
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((size_t)b * Hq + h) * S + qp] = (m[i] + log2f(sum)) * kLn2;
     T* orow = out + (((size_t)b * S + qp) * Hq + h) * D + c0;
 #pragma unroll
     for (int n = 0; n < kND; ++n)
@@ -685,8 +698,8 @@ __global__ void __launch_bounds__(128 * Shape<D>::kWG, Shape<D>::kMinBlocks)
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Hq,
-           int Hkv, int window, float softcap, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+           int Hq, int Hkv, int window, float softcap, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(flash_prefill_bf16_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -705,17 +718,17 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
   const float cap = softcap > 0.f ? softcap * kLog2e : 0.f;
   flash_prefill_bf16_kernel<D><<<grid, 128 * Shape<D>::kWG, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, Hq, Hkv, window, qk_scale, cap, pack_log2);
+      static_cast<T*>(out), lse, S, Hq, Hkv, window, qk_scale, cap, pack_log2);
   return (int)cudaGetLastError();
 }
 
 }  // namespace bf16
 
 template <int D>
-int launch_dtype(int dtype, const void* q, const void* k, const void* v, void* out, int B,
-                 int S, int Hq, int Hkv, int window, float softcap, cudaStream_t s) {
-  if (dtype == 0) return f32::launch<D>(q, k, v, out, B, S, Hq, Hkv, window, softcap, s);
-  if (dtype == 1) return bf16::launch<D>(q, k, v, out, B, S, Hq, Hkv, window, softcap, s);
+int launch_dtype(int dtype, const void* q, const void* k, const void* v, void* out, float* lse,
+                 int B, int S, int Hq, int Hkv, int window, float softcap, cudaStream_t s) {
+  if (dtype == 0) return f32::launch<D>(q, k, v, out, lse, B, S, Hq, Hkv, window, softcap, s);
+  if (dtype == 1) return bf16::launch<D>(q, k, v, out, lse, B, S, Hq, Hkv, window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -724,18 +737,23 @@ int launch_dtype(int dtype, const void* q, const void* k, const void* v, void* o
 // q (B,S,Hq,D), k/v (B,S,Hkv,D) → out (B,S,Hq,D), all contiguous and
 // 16-byte aligned, in fp32 (dtype 0) or bf16 (dtype 1); D ∈ {64, 128, 256};
 // Hq a multiple of Hkv; window >= 0 (0: none); softcap >= 0 (0: none).
-// Checked by the wrapper; an out-of-range argument returns
-// cudaErrorInvalidValue here. Returns cudaGetLastError().
+// lse: null, or (B,Hq,S) fp32 that receives each row's log-sum-exp of the
+// capped, masked, scaled scores in natural-log units (the backward's
+// input, flash_prefill_bwd.cu). Checked by the wrapper; an out-of-range
+// argument returns cudaErrorInvalidValue here. Returns cudaGetLastError().
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* out,
-                                    int B, int S, int Hq, int Hkv, int D, int window,
-                                    int dtype, float softcap, void* stream) {
+                                    void* lse, int B, int S, int Hq, int Hkv, int D,
+                                    int window, int dtype, float softcap, void* stream) {
   if (Hkv < 1 || Hq < Hkv || Hq % Hkv != 0 || window < 0 || !(softcap >= 0.f) || B < 0 ||
       S < 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_dtype<64>(dtype, q, k, v, out, B, S, Hq, Hkv, window, softcap, s);
-  if (D == 128) return launch_dtype<128>(dtype, q, k, v, out, B, S, Hq, Hkv, window, softcap, s);
-  if (D == 256) return launch_dtype<256>(dtype, q, k, v, out, B, S, Hq, Hkv, window, softcap, s);
+  float* l = static_cast<float*>(lse);
+  if (D == 64) return launch_dtype<64>(dtype, q, k, v, out, l, B, S, Hq, Hkv, window, softcap, s);
+  if (D == 128)
+    return launch_dtype<128>(dtype, q, k, v, out, l, B, S, Hq, Hkv, window, softcap, s);
+  if (D == 256)
+    return launch_dtype<256>(dtype, q, k, v, out, l, B, S, Hq, Hkv, window, softcap, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -50,8 +50,11 @@ SIGNATURES = {
     "ssd_intra_chunk_launch": [_P] * 8 + [_I] * 7 + [_P],
     # no arguments; blocks of the bf16 kernel an SM, or -(CUDA error)
     "ssd_intra_chunk_bf16_blocks_per_sm": [],
-    # q, k, v, out, B, S, Hq, Hkv, D, window, dtype code, softcap, stream
-    "flash_prefill_launch": [_P] * 4 + [_I] * 7 + [ctypes.c_float, _P],
+    # q, k, v, out, lse (or null), B, S, Hq, Hkv, D, window, dtype code, softcap, stream
+    "flash_prefill_launch": [_P] * 5 + [_I] * 7 + [ctypes.c_float, _P],
+    # q, k, v, out, dout, lse, delta, dq, dk, dv, B, S, Hq, Hkv, D, window,
+    # dtype code, softcap, stream
+    "flash_prefill_bwd_launch": [_P] * 10 + [_I] * 7 + [ctypes.c_float, _P],
 }
 ERROR_STRING = "repro_cuda_error_string"
 

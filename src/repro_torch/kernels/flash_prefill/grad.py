@@ -1,5 +1,6 @@
 """Gradient of causal prefill attention (GQA, sliding window, tanh
-softcap) in plain PyTorch: the backward of ``ops.FlashPrefillFn``.
+softcap) in plain PyTorch: the backward of ``ops.FlashPrefillFn`` on the
+CPU, and the plain version of its backward kernel on the card.
 
 The JAX package has no backward kernel: its training differentiates the
 plain attention of ``src/repro/models/attention.py::_attend`` with
@@ -19,6 +20,11 @@ masked scores and O = P·V:
 
 dK and dV sum over each KV head's group of query heads. Everything runs
 in fp32 and the grads come back in the inputs' dtype.
+
+P is the softmax of the chunk's scores, or, given the forward's row
+log-sum-exp ``lse``, exp(scores − lse): the formulation of the backward
+kernel (``csrc/flash_prefill_bwd.cu``, launched by ``kernel.py``'s
+``flash_prefill_bwd_cuda``).
 """
 
 from __future__ import annotations
@@ -29,10 +35,11 @@ import torch
 
 
 def flash_prefill_vjp(q, k, v, out, dout, window: int = 0, softcap: float = 0.0,
-                      q_chunk: int = 1024):
+                      q_chunk: int = 1024, lse=None):
     """q: (B,S,Hq,D); k, v: (B,S,Hkv,D); out: the forward's (B,S,Hq,D);
     dout: the gradient of ``out``. Positions 0..S-1, causal, with the
-    ``window`` (0: none) and ``softcap`` (0: none) of the forward.
+    ``window`` (0: none) and ``softcap`` (0: none) of the forward;
+    ``lse``: None, or the forward's (B,Hq,S) fp32 row log-sum-exp.
 
     Returns (dq, dk, dv) in the dtypes of q, k and v."""
     B, S, Hq, D = q.shape
@@ -45,6 +52,8 @@ def flash_prefill_vjp(q, k, v, out, dout, window: int = 0, softcap: float = 0.0,
     dog = dout.to(f32).reshape(B, S, Hkv, qpk, D)
     kf, vf = k.to(f32), v.to(f32)
     pos = torch.arange(S, device=q.device)
+    if lse is not None:
+        lse = lse.to(f32).reshape(B, Hkv, qpk, S)
     dq = torch.empty((B, S, Hkv, qpk, D), dtype=f32, device=q.device)
     dk = torch.zeros((B, S, Hkv, D), dtype=f32, device=q.device)
     dv = torch.zeros_like(dk)
@@ -61,7 +70,9 @@ def flash_prefill_vjp(q, k, v, out, dout, window: int = 0, softcap: float = 0.0,
         mask = qp >= kp
         if window:
             mask &= qp - kp < window
-        p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+        s = s.masked_fill(~mask, float("-inf"))
+        p = (torch.softmax(s, dim=-1) if lse is None
+             else torch.exp(s - lse[..., q0:q1, None]))
         dv[:, k0:q1] += torch.einsum("bgpqk,bqgpd->bkgd", p, doc)
         dp = torch.einsum("bqgpd,bkgd->bgpqk", doc, vc)
         rows = torch.einsum("bqgpd,bqgpd->bgpq", doc, og[:, q0:q1])

@@ -16,12 +16,14 @@ import torch
 
 
 def flash_prefill_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
-                      q_chunk: int = 1024):
+                      q_chunk: int = 1024, return_lse: bool = False):
     """q: (B,S,Hq,D); k,v: (B,S,Hkv,D); positions are 0..S-1.
 
     Scores in fp32 scaled by 1/sqrt(D), then softcap, then the causal mask
     with the window (q - k < window), masked with -inf; fp32 softmax and
-    fp32 P·V. Returns (B,S,Hq,D) in q's dtype.
+    fp32 P·V. Returns (B,S,Hq,D) in q's dtype; with ``return_lse`` also
+    each row's log-sum-exp of those masked scores, (B,Hq,S) fp32 in
+    natural-log units (what the kernel's forward saves for its backward).
     """
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -31,6 +33,8 @@ def flash_prefill_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
     pos = torch.arange(S, device=q.device)
     out = torch.empty((B, S, Hkv, qpk, D), dtype=torch.float32,
                       device=q.device)
+    lse = (torch.empty((B, Hkv, qpk, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     for q0 in range(0, S, q_chunk):
         q1 = min(q0 + q_chunk, S)
         # keys past the chunk's last row or before its first row's window
@@ -47,4 +51,9 @@ def flash_prefill_ref(q, k, v, *, window: int = 0, softcap: float = 0.0,
         s = s.masked_fill(~mask, float("-inf"))
         w = torch.softmax(s, dim=-1)
         out[:, q0:q1] = torch.einsum("bgpqk,bkgd->bqgpd", w, vf[:, k0:q1])
-    return out.reshape(B, S, Hq, D).to(q.dtype)
+        if return_lse:
+            lse[..., q0:q1] = torch.logsumexp(s, dim=-1)
+    out = out.reshape(B, S, Hq, D).to(q.dtype)
+    if return_lse:
+        return out, lse.reshape(B, Hq, S)
+    return out

@@ -67,7 +67,7 @@ def launch(lib, q, k, v, window=0, softcap=0.0):
     out = torch.empty_like(q)
     B, S, Hq, D = q.shape
     code = lib.flash_prefill_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    B, S, Hq, k.shape[2], D, window, 1, softcap,
+                                    None, B, S, Hq, k.shape[2], D, window, 1, softcap,
                                     torch.cuda.current_stream().cuda_stream)
     if code:
         raise RuntimeError(f"flash_prefill_launch: CUDA error {code}")

@@ -93,6 +93,10 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
     def block_pattern(self) -> List[LayerSpec]:
         """The repeating super-block of the layer stack."""
         period = 1
@@ -101,8 +105,7 @@ class ModelConfig:
         if self.attn_layer_period:
             period = max(period, self.attn_layer_period)
         if self.num_experts and self.moe_layer_period > 1:
-            period = period * self.moe_layer_period // math.gcd(
-                period, self.moe_layer_period)
+            period = _lcm(period, self.moe_layer_period)
         if self.num_layers % period != 0:
             raise ValueError(
                 f"{self.name}: num_layers {self.num_layers} not divisible "
@@ -179,6 +182,10 @@ class ModelConfig:
         inactive = moe_layers * (self.num_experts - self.top_k) * \
             3 * self.d_model * self.moe_d_ff
         return full - inactive
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
 
 
 @dataclass(frozen=True)

@@ -1169,3 +1169,30 @@ def test_every_analysis_definition_has_a_counterpart():
 
 def test_every_kv_pool_definition_has_a_counterpart():
     assert _missing("serving", "kv_pool.py") == {}
+
+
+def test_every_configs_definition_has_a_counterpart():
+    """The config registry (``configs/__init__.py``) and ``ModelConfig``
+    (``models/config.py``): every name, and ``all_configs()`` equal on both
+    packages, each config's fields and its ``q_per_kv`` (a ZeroDivisionError
+    on both where there are no KV heads)."""
+    import dataclasses
+
+    import repro.configs as Rc
+    import repro_torch.configs as Tc
+
+    assert _missing("configs", "__init__.py") == {}
+    assert _missing("models", "config.py") == {}
+    assert set(Rc.__all__) <= set(Tc.__all__)
+    ref, port = Rc.all_configs(), Tc.all_configs()
+    assert sorted(ref) == sorted(port)
+
+    def q_per_kv(cfg):
+        try:
+            return cfg.q_per_kv
+        except ZeroDivisionError:
+            return ZeroDivisionError
+    for arch, cfg in ref.items():
+        assert dataclasses.asdict(port[arch]) == dataclasses.asdict(cfg), arch
+        assert q_per_kv(port[arch]) == q_per_kv(cfg), arch
+    assert Tc.get_config("gemma3_12b").q_per_kv == 2

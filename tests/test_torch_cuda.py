@@ -1067,6 +1067,93 @@ def test_flash_prefill_function_grads_on_card(dev, dtype, window, softcap):
         torch.testing.assert_close(g.float(), w.float(), **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_flash_prefill_kernel_lse_matches_plain(dev, dtype, D):
+    """The forward's row log-sum-exp against the plain version's, its
+    output bitwise the one without it; S 100 and 300 (ragged tiles), GQA
+    2, window 0/32, softcap 0/30."""
+    for S in (100, 300):
+        q, k, v = [t.to(dev) for t in _k3_inputs(2, S, 4, 2, D, dtype, seed=S + D)]
+        for window in (0, 32):
+            for softcap in (0.0, 30.0):
+                out, lse = flash_prefill_cuda(q, k, v, window=window, softcap=softcap,
+                                              return_lse=True)
+                assert lse.dtype == torch.float32 and lse.shape == (2, 4, S)
+                assert torch.equal(out, flash_prefill_cuda(q, k, v, window=window,
+                                                           softcap=softcap))
+                _, want = flash_prefill_ref(q, k, v, window=window, softcap=softcap,
+                                            return_lse=True)
+                torch.testing.assert_close(lse, want, **TOL[torch.float32])
+
+
+# (S, window, softcap): ragged S, windows narrower and wider than a tile,
+# a window of one, a softcap with and without a window
+K3_BWD_EDGES = [(1, 0, 0.0), (37, 0, 30.0), (65, 1, 0.0), (100, 32, 0.0), (130, 64, 0.0),
+                (200, 65, 5.0), (300, 0, 0.0), (300, 17, 0.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2)], ids=["gqa1", "gqa2"])
+def test_flash_prefill_bwd_kernel_matches_plain(dev, dtype, D, heads):
+    """The backward kernel against ``flash_prefill_vjp`` given the same
+    forward output and lse (its formulation), at K3's kernel tolerance:
+    both sides accumulate in fp32; bf16 grads differ by their rounding."""
+    from repro_torch.kernels.flash_prefill import flash_prefill_vjp
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_bwd_cuda
+
+    Hq, Hkv = heads
+    for S, window, softcap in K3_BWD_EDGES:
+        q, k, v = [t.to(dev) for t in _k3_inputs(2, S, Hq, Hkv, D, dtype, seed=S + D)]
+        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(S)).to(dev, dtype)
+        out, lse = flash_prefill_cuda(q, k, v, window=window, softcap=softcap, return_lse=True)
+        n0 = flash_prefill_bwd_cuda.launches
+        got = flash_prefill_bwd_cuda(q, k, v, out, dout, lse, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        assert flash_prefill_bwd_cuda.launches == n0 + 1
+        want = flash_prefill_vjp(q, k, v, out, dout, window=window, softcap=softcap, lse=lse)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == dtype and torch.isfinite(g.float()).all()
+            torch.testing.assert_close(g.float(), w.float(), **K1_TOL[dtype],
+                                       msg=lambda m: f"{name} S={S} window={window} "
+                                                     f"softcap={softcap}: {m}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [128, 256])
+def test_flash_prefill_bwd_kernel_is_bitwise_repeatable(dev, dtype, D):
+    """Two calls on the same inputs give the same bits (no atomics): the
+    training CLI's resume and the sharded losses rest on it."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_bwd_cuda
+
+    q, k, v = [t.to(dev) for t in _k3_inputs(2, 333, 8, 4, D, dtype, seed=4)]
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(dev, dtype)
+    out, lse = flash_prefill_cuda(q, k, v, window=100, softcap=20.0, return_lse=True)
+    first = flash_prefill_bwd_cuda(q, k, v, out, dout, lse, window=100, softcap=20.0)
+    again = flash_prefill_bwd_cuda(q, k, v, out, dout, lse, window=100, softcap=20.0)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_flash_prefill_function_backward_is_one_kernel_call(dev, monkeypatch):
+    """On the card ``FlashPrefillFn``'s backward is one call of the backward
+    kernel's wrapper and never the plain gradient."""
+    import repro_torch.kernels.flash_prefill.ops as k3_ops
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill_bwd_cuda
+
+    def plain(*a, **kw):
+        raise AssertionError("flash_prefill_vjp ran on the card")
+    monkeypatch.setattr(k3_ops, "flash_prefill_vjp", plain)
+    q, k, v = [t.to(dev).requires_grad_()
+               for t in _k3_inputs(2, 200, 8, 4, 128, torch.bfloat16, seed=6)]
+    out = flash_prefill(q, k, v, window=64)
+    n0 = flash_prefill_bwd_cuda.launches
+    grads = torch.autograd.grad(out, (q, k, v), torch.ones_like(out))
+    assert flash_prefill_bwd_cuda.launches == n0 + 1
+    assert all(g.dtype == torch.bfloat16 and torch.isfinite(g.float()).all() for g in grads)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_function_grads_on_card_stay_finite_above_88(dev, dtype):
     """``ssd_chunked`` on the card goes through ``SsdIntraChunkFn``: one K4
